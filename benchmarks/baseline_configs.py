@@ -13,10 +13,11 @@ sizes, or loaded from ``--assets DIR`` when real frames are available):
   5. warp_affine + full pipeline, batch-sharded over the device mesh
                                        (lakers25601440, 2560x1440)
 
-Per config: single-thread OpenCV reference ms, our device ms
-(loop-slope timing), cosine similarity, PASS/FAIL at 1e-4 — the same
-four-tuple contract as the reference's CvProfile
-(``src/test/src/profile/cv_profile.cpp:97-117``).
+Per config: single-thread OpenCV reference ms ("not measured" without
+OpenCV), our device ms (host-clock median around
+``jax.block_until_ready`` after a compiling warm-up, GPU only), cosine
+similarity, PASS/FAIL at 1e-4 — the same four-tuple contract as the
+reference's CvProfile (``src/test/src/profile/cv_profile.cpp:97-117``).
 
 Run:  python -m benchmarks.baseline_configs
 """
@@ -27,11 +28,10 @@ import json
 import numpy as np
 
 from vacv_tpu.profile import CvProfile, TestFuncInfo
-from .op_bench import _img, _pair
+from .op_bench import _img, _pair, cv2
 
 
 def build_tests():
-    import cv2
     import jax
     import jax.numpy as jnp
 
@@ -42,12 +42,12 @@ def build_tests():
     from vacv_tpu.ops.resize import resize
     from vacv_tpu.utils.io import bgr2nv21_numpy
 
-    cv2.setNumThreads(1)
+    if cv2 is not None:
+        cv2.setNumThreads(1)
     tests = []
 
     def jitter(b, i):
-        # i-dependent input perturbation so the timing loop cannot be
-        # hoisted (adding 0/1 to u8 pixels).
+        # i-dependent input perturbation (adds 0 at the timed i = 0).
         return b + (i % 2).astype(b.dtype)
 
     # ---- config 1: crop + bilinear resize (salesman_qcif) ----------
@@ -118,7 +118,7 @@ def build_tests():
         f = src3.astype(np.float32)
         outs = []
         for (wh, mode) in ladder:
-            inter = cv2.INTER_LINEAR if mode == InterMode.INTER_LINEAR else cv2.INTER_CUBIC
+            inter = getattr(cv2, InterMode(mode).name)
             r = cv2.resize(f, wh, interpolation=inter)
             m, s = cv2.meanStdDev(r)
             outs.append(np.concatenate([m.ravel(), s.ravel()]).astype(np.float32))
@@ -157,10 +157,6 @@ def build_tests():
     batch5 = np.stack([src5] * (per * n_dev))
     from vacv_tpu.parallel import make_mesh, put_sharded
     mesh = make_mesh()
-    # Preprocessor.batched: per-shard the warp-config batch folds its
-    # frame axis into the warp kernel's channel axis (one off-vmap
-    # kernel call per shard — model-ranked plan, streaming allowed)
-    # instead of vmapping per-image.
     step5 = pre5.batched(mesh)
     batch5j = put_sharded(batch5, mesh)
 
@@ -189,9 +185,16 @@ def build_tests():
 
 
 def main(reps=5):
-    from vacv_tpu import config as vconfig
+    import jax
 
+    from vacv_tpu import config as vconfig
+    from vacv_tpu.utils.perf import card_info, require_gpu
+
+    require_gpu(jax.devices())
     vconfig.enable_compile_cache()
+    dev = jax.devices()[0]
+    print(f"# device: {dev.platform} {dev.device_kind} x{len(jax.devices())}"
+          f"; card: {card_info()}")
     prof = CvProfile(k_test_times=reps, k_log_batch_size=10)
     prof.profile(build_tests(), verbose=False)
     ok = prof.print_results()

@@ -1,15 +1,13 @@
-"""Scaling-efficiency benchmark: frames/s at 1..N devices.
+"""Scaling benchmark: frames/s of the sharded cfg-4-style pipeline at
+1..N GPUs of one host.
 
-BASELINE.md target: ≥0.9 scaling efficiency from 1 chip → 1 host → N
-hosts with batch-sharded frames.  On a pod slice this script measures
-real ICI/DCN scaling; on a single-chip or CPU environment it runs the
-same sharded program over an N-way virtual device mesh
-(``--xla_force_host_platform_device_count``), which validates the
-sharding/collective structure (the program XLA compiles is the same
-SPMD program a pod runs) while the quoted efficiency is only meaningful
-on real multi-chip hardware.
+Each device count runs ``Preprocessor.batched`` over a 1-D mesh of that
+many GPUs with a fixed per-device batch; the time is the host-clock
+median around ``jax.block_until_ready`` after a compiling warm-up.
+Efficiency is frames/s over (frames/s at the smallest count × the
+device ratio).  Exits non-zero without a GPU.
 
-Run: python -m benchmarks.scaling_bench [--sizes 1 2 4 8]
+Run: python -m benchmarks.scaling_bench [--sizes 1 2 4]
 """
 from __future__ import annotations
 
@@ -19,65 +17,44 @@ import json
 import numpy as np
 
 
-def run(device_counts=None):
+def run(device_counts=None, per_dev_batch=32, reps=10):
     import jax
-    import jax.numpy as jnp
 
     import vacv_tpu as vc
+    from vacv_tpu.config import enable_compile_cache
+    from vacv_tpu.models import PreprocessConfig, Preprocessor
     from vacv_tpu.parallel import make_mesh, put_sharded
-    from vacv_tpu.utils.perf import device_time
-    from vacv_tpu.ops.crop import crop_dynamic
-    from vacv_tpu.ops.normalize import normalize_jnp
-    from vacv_tpu.ops.resize import resize
-    from vacv_tpu.core.types import Layout
+    from vacv_tpu.utils.perf import card_info, require_gpu
+
+    from .op_bench import _device_ms
 
     devices = jax.devices()
-    if len(devices) == 1:
-        cpus = jax.devices("cpu") if jax.default_backend() != "cpu" else devices
-        if len(cpus) > len(devices):
-            devices = cpus
-            print(f"# single accelerator — using {len(devices)} virtual CPU "
-                  "devices (sharding validation, not real scaling numbers)")
+    require_gpu(devices)
+    enable_compile_cache()
+    card = card_info()
     if device_counts is None:
         device_counts = [n for n in (1, 2, 4, 8) if n <= len(devices)]
 
-    H, W, OUT = 360, 640, 224
-    per_dev_batch = 4
-
-    def per_image(x, left):
-        img = crop_dynamic(vc.Image(x, Layout.HWC), left, 8, 608, 336)
-        img = resize(img, (OUT, OUT))
-        img = img.change_layout(Layout.CHW).change_dtype(jnp.float32)
-        return normalize_jnp(img).data
-
+    pre = Preprocessor(PreprocessConfig(
+        crop_rect=vc.VRect(64, 28, 1856, 1064), out_size=(224, 224)))
+    rng = np.random.default_rng(0)
     results = []
     base = None
-    rng = np.random.default_rng(0)
     for n in device_counts:
         mesh = make_mesh(devices[:n])
-        batch = rng.integers(
-            0, 256, size=(per_dev_batch * n, H, W, 3), dtype=np.uint8
-        )
-        dev_batch = put_sharded(batch, mesh)
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as P
-
-        def step(i, b):
-            fn = lambda x: per_image(x, 8 + (i % 2))
-            return shard_map(
-                jax.vmap(fn), mesh=mesh, in_specs=P("data"),
-                out_specs=P("data"), check_vma=False,
-            )(b)
-
-        sec = device_time(step, dev_batch, iters=16, base_iters=2)
-        fps = len(batch) / sec
+        batch = rng.integers(0, 256, size=(per_dev_batch * n, 1080, 1920, 3),
+                             dtype=np.uint8)
+        ms, _ = _device_ms(pre.batched(mesh), (put_sharded(batch, mesh),),
+                           reps)
+        fps = len(batch) / (ms / 1e3)
         if base is None:
-            base = fps
-        eff = fps / (base * n / device_counts[0])
-        results.append({"devices": n, "fps": round(fps, 1),
-                        "efficiency": round(eff, 3)})
-        print(f"devices={n:2d}  fps={fps:10.1f}  efficiency={eff:.3f}")
-    print(json.dumps({"scaling": results}))
+            base = fps / device_counts[0]
+        eff = fps / (base * n)
+        results.append({"devices": n, "ms_per_step": ms, "fps": fps,
+                        "efficiency": eff})
+        print(f"devices={n:2d}  fps={fps:10.1f}  efficiency={eff:.3f}  "
+              f"[card: {card}]")
+    print(json.dumps({"scaling": results, "card": card}))
     return results
 
 

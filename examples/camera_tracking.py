@@ -1,17 +1,15 @@
-"""End-to-end example: moving-ROI camera tracking on TPU.
+"""End-to-end example: moving-ROI camera tracking.
 
-The round-4 feature tour — a tracking-style camera loop where the crop
-window FOLLOWS a target between frames:
+A tracking-style camera loop where the crop window FOLLOWS a target
+between frames:
 
 1. synthesize an NV21 camera stream with a drifting target patch,
-2. localize the target with ``match_template`` (resident-image Pallas
-   correlation kernel) + ``min_max_loc``,
-3. preprocess the next frame's ROI with the one-pass fused NV kernel
-   using a RUNTIME crop top — the moving window re-uses ONE compiled
-   program for every position (the reference chain supports this
-   because its decode and crop are separate ops,
-   cvt_color.cpp:151-156; here the whole
-   decode→crop→resize→normalize stays a single HBM pass).
+2. localize the target with ``match_template`` + ``min_max_loc``,
+3. preprocess the next frame's ROI with ``preprocess_fused_nv_batch``
+   (NV decode → crop → resize → normalize under one ``jit``) using a
+   RUNTIME crop top — the moving window re-uses ONE compiled program
+   for every position (the reference chain supports this because its
+   decode and crop are separate ops, cvt_color.cpp:151-156).
 
 Run: python -m examples.camera_tracking
 """
@@ -42,16 +40,12 @@ def main():
     import jax.numpy as jnp
 
     import vacv_tpu as vc
-    from vacv_tpu.ops.pallas.preprocess import (
-        nv_plan_supported, preprocess_fused_nv_batch,
-    )
+    from vacv_tpu.models import preprocess_fused_nv_batch
 
     h, w = 720, 1280
     frames, target, true_tops = make_stream(h=h, w=w)
     roi_h, out = 320, (224, 224)
     rect0 = vc.VRect(0, 0, w, roi_h)  # runtime `top` moves this window
-
-    assert nv_plan_supported(h, w, 0, w, roi_h, out[1], out[0], top=None)
 
     tmpl = jax.device_put(jnp.asarray(target))
     est_top = 0
@@ -63,7 +57,7 @@ def main():
         _, score, _, (tx, ty) = vc.min_max_loc(resp)
         ty = int(ty)
         # 2. center the tracking window on the target (clamped);
-        #    ONE compiled fused-NV program serves every position.
+        #    ONE compiled program serves every position.
         est_top = int(np.clip(ty - (roi_h - 48) // 2, 0, h - roi_h))
         net_in = preprocess_fused_nv_batch(
             nvj[None], rect0, out, top=jnp.int32(est_top))[0]
@@ -72,7 +66,7 @@ def main():
               f"net_in {tuple(net_in.shape)} "
               f"mean={float(jnp.mean(net_in)):+.4f}")
         assert abs(ty - true_tops[i]) <= 2, "tracker lost the target"
-    print("tracked", len(frames), "frames with one fused-NV program")
+    print("tracked", len(frames), "frames with one compiled program")
 
 
 if __name__ == "__main__":

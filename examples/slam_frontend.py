@@ -1,4 +1,4 @@
-"""End-to-end example: SLAM/vision front-end preprocessing on TPU.
+"""End-to-end example: SLAM/vision front-end preprocessing.
 
 Walks the full vacv_tpu path a production user takes:
 

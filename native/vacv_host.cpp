@@ -1,6 +1,6 @@
 // vacv_tpu native host-side utilities.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the native
+// The device compute path is JAX/XLA; this library is the native
 // counterpart of the reference's C++ host layer — the pieces that run on
 // the CPU feeding the device: YUV synthesis/decode for camera-format
 // inputs (reference: src/util/image_util.cpp:3-41, src/cv/cvt_color.cpp:

@@ -19,8 +19,6 @@ if "host_platform_device_count" not in flags:
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np

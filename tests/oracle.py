@@ -93,3 +93,41 @@ def resize_bilinear_u8(src: np.ndarray, w_out: int, h_out: int) -> np.ndarray:
         + s[sy + 1][:, sx + 1] * (cx1[None, :, None] * cy1[:, None, None])
     out = ((top + bot) >> 22).astype(np.uint8)
     return out if src.ndim == 3 else out[..., 0]
+
+
+def warp_affine_u8_rows(src: np.ndarray, m_inv: np.ndarray, w_out: int,
+                        h_out: int, rows=None) -> np.ndarray:
+    """``warp_affine_u8`` vectorised over the output rows ``rows``
+    (default: all ``h_out``), with the same f32 coordinate arithmetic,
+    Q11 weights, Q22 truncation and skip-edge zeros.  Returns
+    (len(rows), w_out, C) u8."""
+    h_in, w_in, c = src.shape
+    m = m_inv.astype(np.float32).ravel()
+    ys = np.arange(h_out) if rows is None else np.asarray(rows)
+    dy = ys.astype(np.float32)[:, None]
+    dx = np.arange(w_out, dtype=np.float32)[None, :]
+    fx = m[0] * dx + m[1] * dy + m[2]
+    fy = m[3] * dx + m[4] * dy + m[5]
+    sx = np.floor(fx).astype(np.int64)
+    sy = np.floor(fy).astype(np.int64)
+    fx = fx - sx.astype(np.float32)
+    fy = fy - sy.astype(np.float32)
+    ok = (sx >= 0) & (sx < w_in - 1) & (sy >= 0) & (sy < h_in - 1)
+    sx = np.where(ok, sx, 0)
+    sy = np.where(ok, sy, 0)
+    cx0 = np.floor((1.0 - fx) * 2048 + 0.5).astype(np.int64)[..., None]
+    cy0 = np.floor((1.0 - fy) * 2048 + 0.5).astype(np.int64)[..., None]
+    cx1, cy1 = 2048 - cx0, 2048 - cy0
+    s = src.astype(np.int64)
+    acc = (s[sy, sx] * cx0 * cy0 + s[sy + 1, sx] * cx0 * cy1
+           + s[sy, sx + 1] * cx1 * cy0 + s[sy + 1, sx + 1] * cx1 * cy1)
+    return np.where(ok[..., None], acc >> 22, 0).astype(np.uint8)
+
+
+def normalize_chw(x: np.ndarray) -> np.ndarray:
+    """Per-channel ``(x - mean) / (std + 1e-6)`` of a (..., C, H, W)
+    array with float64 statistics (population variance), as float32."""
+    f = x.astype(np.float64)
+    mean = f.mean(axis=(-2, -1), keepdims=True)
+    std = f.std(axis=(-2, -1), keepdims=True)
+    return ((f - mean) / (std + 1e-6)).astype(np.float32)

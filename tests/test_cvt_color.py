@@ -1,6 +1,6 @@
 """cvt_color tests: bit-exactness vs the reference algorithm oracle,
 plus the reference's own roundtrip-vs-original-BGR check
-(test_cvt_color.cpp:23-57), plus the pallas kernel in interpret mode."""
+(test_cvt_color.cpp:23-57), plus the planar decode core."""
 import numpy as np
 import pytest
 
@@ -74,20 +74,20 @@ def test_yv12(bgr_176x144):
     np.testing.assert_array_equal(out, ref)
 
 
-def test_pallas_kernel_matches_jnp(bgr_176x144):
-    from vacv_tpu.ops.cvt_color import nv_to_bgr_planes_jnp
-    from vacv_tpu.ops.pallas.yuv2bgr import nv_to_bgr_pallas
+def test_nv_to_bgr_planes_matches_oracle(bgr_176x144):
+    """The planar decode core (the pipeline's NV entry) matches the
+    oracle plane by plane."""
+    import jax.numpy as jnp
+
+    from vacv_tpu.ops.cvt_color import nv_to_bgr_planes
 
     buf = _nv_buffer(bgr_176x144)
     h, w = bgr_176x144.shape[:2]
     y, vu = nv21_planes(buf.ravel(), w, h)
-    import jax.numpy as jnp
-
-    yj, vuj = jnp.asarray(y), jnp.asarray(vu)
-    ref = nv_to_bgr_planes_jnp(yj, vuj, is_nv12=False)
-    out = nv_to_bgr_pallas(yj, vuj, is_nv12=False)
-    for o, r in zip(out, ref):
-        np.testing.assert_array_equal(np.asarray(o), np.asarray(r))
+    ref = nv_to_bgr(y, vu, is_nv12=False)
+    out = nv_to_bgr_planes(jnp.asarray(y), jnp.asarray(vu), is_nv12=False)
+    for k, o in enumerate(out):
+        np.testing.assert_array_equal(np.asarray(o), ref[..., k])
 
 
 # ---- odd-geometry NV frames (reference zerobuf trick, cvt_color.cpp:52-66)
@@ -107,24 +107,21 @@ def test_nv21_odd_height_bit_exact(rng, h, w):
     assert out.data.shape == (h, w, 3)
 
 
-def test_nv21_odd_height_pallas_interpret(rng):
-    """The pallas kernel path (interpret on CPU) matches the oracle on
-    an odd-height frame."""
+def test_nv21_odd_height_planes(rng):
+    """The planar decode core matches the oracle on an odd-height
+    frame."""
     import jax.numpy as jnp
 
     from conftest import make_bgr
-    from vacv_tpu import config
-    from vacv_tpu.ops.pallas.yuv2bgr import nv_to_bgr_pallas
+    from vacv_tpu.ops.cvt_color import nv_to_bgr_planes
 
     h, w = 175, 144
     bgr = make_bgr(h, w, rng, smooth=True)
     nv21 = bgr2nv21_numpy(bgr)
     y, vu = nv21_planes(nv21, w, h)
     ref = nv_to_bgr(y, vu, is_nv12=False)
-    with config.backend("pallas"):
-        b, g, r = nv_to_bgr_pallas(
-            jnp.asarray(y), jnp.asarray(vu), is_nv12=False
-        )
+    b, g, r = nv_to_bgr_planes(jnp.asarray(y), jnp.asarray(vu),
+                               is_nv12=False)
     got = np.stack([np.asarray(b), np.asarray(g), np.asarray(r)], axis=-1)
     np.testing.assert_array_equal(got, ref)
 

@@ -57,13 +57,9 @@ def test_normalize_flat_image():
     np.testing.assert_allclose(out, 0.0, atol=1e-4)
 
 
-def test_pallas_fused_matches_jnp(bgr_176x144):
-    from vacv_tpu.ops.normalize import normalize_jnp
-    from vacv_tpu.ops.pallas.normalize import normalize_fused_pallas
-
-    img = vc.as_image(bgr_176x144)
-    ref = normalize_jnp(img).numpy()
-    out = normalize_fused_pallas(img).numpy()
+def test_normalize_u8_hwc_matches_oracle(bgr_176x144):
+    out = vc.normalize(bgr_176x144).numpy()
+    ref, _, _ = _oracle(bgr_176x144.astype(np.float32))
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
     assert abs(cosine_similarity(out, ref) - 1) < 1e-7
 
@@ -78,89 +74,49 @@ def test_normalize_partial_stats(bgr_176x144):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
-# ---- tiled pallas normalize kernel (any frame size, both layouts)
+# ---- frame sizes and layouts: odd rows/lanes, large planes, vmap
 
 
-@pytest.mark.parametrize("layout,shape", [
-    ("chw", (3, 300, 640)),    # multi-chunk planes, odd chunk tail
-    ("chw", (3, 64, 96)),      # single chunk
-    ("hwc", (300, 640, 3)),    # interleaved lanes, multi-chunk
-    ("hwc", (45, 33, 3)),      # odd lanes (99), odd rows
-])
-def test_pallas_normalize_tiled_matches_jnp(rng, layout, shape):
-    import jax.numpy as jnp
-
-    from vacv_tpu import config
-    from vacv_tpu.core.image import Image
-    from vacv_tpu.core.types import Layout
-    from vacv_tpu.ops.normalize import normalize_jnp
-    from vacv_tpu.ops.pallas.normalize import normalize_fused_pallas
-
-    x = rng.integers(0, 256, size=shape, dtype=np.uint8)
-    lay = Layout.HWC if layout == "hwc" else Layout.CHW
-    img = Image(jnp.asarray(x), lay)
-    with config.backend("pallas"):
-        got = np.asarray(normalize_fused_pallas(img).data)
-    want = np.asarray(normalize_jnp(img).data)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-
-
-def test_pallas_normalize_chunked_forces_multiple_chunks(rng):
-    """Shrink the chunk budget so even a small frame multi-chunks, and
-    check the Chan merge against a float64 oracle."""
-    import jax.numpy as jnp
-
-    from vacv_tpu import config
-    from vacv_tpu.core.image import Image
-    from vacv_tpu.core.types import Layout
-    from vacv_tpu.ops.pallas import normalize as pn
-
-    x = rng.integers(0, 256, size=(3, 200, 128), dtype=np.uint8)
-    old = pn._CHUNK_BUDGET
-    pn._CHUNK_BUDGET = 64 * 1024  # ~50 rows/chunk -> 4+ chunks
-    try:
-        with config.backend("pallas"):
-            got = np.asarray(
-                normalize_fused_pallas_fresh(Image(jnp.asarray(x), Layout.CHW))
-            )
-    finally:
-        pn._CHUNK_BUDGET = old
+def _oracle_planes(x):
+    """float64-statistics normalize of a (C, H, W) array."""
     f = x.astype(np.float64)
     mu = f.mean(axis=(1, 2), keepdims=True)
     sd = f.std(axis=(1, 2), keepdims=True)
-    want = (f - mu) / (sd + 1e-6)
-    np.testing.assert_allclose(got, want, atol=1e-3)
+    return (f - mu) / (sd + 1e-6)
 
 
-def normalize_fused_pallas_fresh(img):
-    """Call the kernel bypassing the jit cache (the chunk size is
-    derived from module state the cached trace has already baked in)."""
-    from vacv_tpu.ops.pallas import normalize as pn
+@pytest.mark.parametrize("layout,shape", [
+    ("chw", (3, 300, 640)),
+    ("chw", (3, 64, 96)),
+    ("hwc", (300, 640, 3)),
+    ("hwc", (45, 33, 3)),      # odd lanes, odd rows
+])
+def test_normalize_shapes_match_oracle(rng, layout, shape):
+    x = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    lay = vc.HWC if layout == "hwc" else vc.CHW
+    got = np.asarray(vc.normalize(vc.Image(x, lay)).data)
+    planes = np.transpose(x, (2, 0, 1)) if layout == "hwc" else x
+    want = _oracle_planes(planes)
+    if layout == "hwc":
+        want = np.transpose(want, (1, 2, 0))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
-    pn._call_chw._clear_cache()
-    try:
-        return pn.normalize_fused_pallas(img).data
-    finally:
-        pn._call_chw._clear_cache()
+
+def test_normalize_full_hd_planes(rng):
+    """A 1080p CHW f32 frame (the pipeline's post-conversion layout):
+    f32 statistics over 2 M elements per plane stay within 1e-3."""
+    x = rng.integers(0, 256, size=(3, 1080, 1920), dtype=np.uint8)
+    got = np.asarray(vc.normalize(vc.Image(x.astype(np.float32),
+                                           vc.CHW)).data)
+    np.testing.assert_allclose(got, _oracle_planes(x), atol=1e-3)
 
 
-def test_pallas_normalize_under_vmap(rng):
-    """The batched() pipeline vmaps the dispatcher; the pallas kernel
-    must batch correctly (pallas adds a leading grid dim)."""
+def test_normalize_under_vmap(rng):
+    """The batched() pipeline vmaps normalize: per-frame statistics."""
     import jax
-    import jax.numpy as jnp
-
-    from vacv_tpu import config
-    from vacv_tpu.core.image import Image
-    from vacv_tpu.core.types import Layout
-    from vacv_tpu.ops.normalize import normalize, normalize_jnp
 
     x = rng.integers(0, 256, size=(4, 3, 64, 96), dtype=np.uint8)
-    with config.backend("pallas"):
-        f = jax.vmap(lambda a: normalize(Image(a, Layout.CHW)).data)
-        got = np.asarray(f(jnp.asarray(x)))
-    want = np.stack([
-        np.asarray(normalize_jnp(Image(jnp.asarray(x[i]), Layout.CHW)).data)
-        for i in range(4)
-    ])
+    f = jax.vmap(lambda a: vc.normalize(vc.Image(a, vc.CHW)).data)
+    got = np.asarray(f(x))
+    want = np.stack([_oracle_planes(x[i]) for i in range(4)])
     np.testing.assert_allclose(got, want, atol=1e-4)

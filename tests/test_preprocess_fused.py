@@ -1,198 +1,198 @@
-"""Differential tests for the fused Pallas preprocess kernel.
+"""Differential tests for the runtime-top preprocess chains.
 
 ``preprocess_fused_batch`` (crop -> bilinear resize -> CHW f32 ->
-normalize in one HBM pass) vs the jnp pipeline built from the same
-dispatcher ops: crop -> resize(u8, Q11 trunc) -> CHW -> f32 ->
-normalize_jnp.  On CPU the kernel runs in interpret mode with
-``precise=True`` (Dekker-split bf16 matmuls, exact to f32
-accumulation); parity bar is <=1 u8 LSB on the resized pixels and
-cosine >= 1-1e-6 end-to-end.
+normalize) and ``preprocess_fused_nv_batch`` (NV decode first) vs the
+numpy spec oracles: Q11 bilinear resize with ``>>22`` truncation, the
+Q7 NV decode, and float64-statistics normalize.  The u8 resize stage is
+bit-exact, so the f32 outputs agree to float32 rounding of the
+statistics.
 
 Reference parity anchors: crop.cpp:127-131 (rect), resize_naive.cpp:
-10-68 (Q11 bilinear), normalize.cpp:84-120 (normalize chain).
+10-68 (Q11 bilinear), normalize.cpp:84-120 (normalize chain),
+cvt_color.cpp:151-156 (camera decode).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import vacv_tpu as vc
-from vacv_tpu.core.types import Layout
-from vacv_tpu.ops.crop import crop
-from vacv_tpu.ops.normalize import normalize_jnp
-from vacv_tpu.ops.pallas.preprocess import plan_supported, preprocess_fused_batch
-from vacv_tpu.ops.resize import resize
-from vacv_tpu.utils.compare import cosine_similarity
+from vacv_tpu.models import preprocess_fused_batch, preprocess_fused_nv_batch
+from vacv_tpu.utils.io import bgr2nv21_numpy
+from vacv_tpu.utils.perf import count_traces
 
-H, W = 360, 640  # W*3 = 1920 lanes (mult of 128)
+from oracle import normalize_chw, nv_to_bgr, resize_bilinear_u8
+
+H, W = 360, 640
 RECT = vc.VRect(17, 20, 17 + 600, 20 + 320)  # left, top, right, bottom
 OUT = (112, 96)  # (w, h)
+ATOL = 1e-4  # normalized units: f32 statistics vs the float64 oracle
 
 
 def make_batch(rng, n=2, h=H, w=W):
     return rng.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8)
 
 
-def jnp_pipeline(batch, rect, out_size, mean=None, stddev=None, normalize=True):
-    """Per-image jnp reference chain over the batch."""
+def np_pipeline(frames, rect, out_size, mean=None, stddev=None,
+                normalize=True):
+    """crop -> Q11 resize (u8) -> CHW f32 -> normalize, in numpy."""
     outs = []
-    ow, oh = out_size
-    for i in range(batch.shape[0]):
-        img = vc.Image(batch[i], Layout.HWC)
+    for f in frames:
         if rect is not None:
-            img = crop(img, rect)
-        img = resize(img, (ow, oh))  # u8 in/out, Q11 trunc parity
-        img = img.change_layout(vc.CHW).change_dtype("float32")
+            left, top, cw, ch = rect.int_bounds()
+            f = f[top:top + ch, left:left + cw]
+        r = np.transpose(resize_bilinear_u8(f, *out_size), (2, 0, 1))
+        r = r.astype(np.float32)
         if normalize:
-            img = normalize_jnp(img, mean, stddev)
-        outs.append(np.asarray(img.data))
+            if mean is None and stddev is None:
+                r = normalize_chw(r)
+            else:
+                f64 = r.astype(np.float64)
+                m = (f64.mean(axis=(1, 2)) if mean is None
+                     else np.asarray(mean, np.float64))[:, None, None]
+                s = (f64.std(axis=(1, 2))  # around the self-mean
+                     if stddev is None
+                     else np.asarray(stddev, np.float64))[:, None, None]
+                r = ((f64 - m) / (s + 1e-6)).astype(np.float32)
+        outs.append(r)
     return np.stack(outs)
-
-
-def test_plan_supported_bench_config():
-    # The headline bench shape must be in-plan.
-    assert plan_supported(1080, 1920, 64, 1792, 1036, 224, 224)
-
-
-def test_plan_rejects_unsupported():
-    # non-128-multiple widths and odd heights now plan via the
-    # wrapper's pad (round-3 gate lift) — including the reference's
-    # own 176x144 and 284x214 assets
-    assert plan_supported(360, 630, 0, 630, 360, 224, 224)
-    assert plan_supported(144, 176, 0, 176, 144, 224, 224)
-    assert plan_supported(214, 284, 0, 284, 214, 224, 224)
-    # crop height below the smallest DMA chunk (32 rows)
-    assert not plan_supported(360, 640, 0, 640, 24, 64, 64)
-    # 96-row crops now plan with an adaptively smaller chunk
-    assert plan_supported(360, 640, 0, 640, 96, 64, 64)
-    with pytest.raises(ValueError):
-        preprocess_fused_batch(  # 24-row crop: below the chunk floor
-            np.zeros((1, 360, 640, 3), np.uint8),
-            vc.VRect(0, 0, 640, 24), (64, 64)
-        )
 
 
 def test_fused_matches_jnp_pipeline(rng):
     batch = make_batch(rng)
-    got = np.asarray(
-        preprocess_fused_batch(batch, RECT, OUT, precise=True)
-    )
-    want = jnp_pipeline(batch, RECT, OUT)
+    got = np.asarray(preprocess_fused_batch(batch, RECT, OUT))
+    want = np_pipeline(batch, RECT, OUT)
     assert got.shape == want.shape == (2, 3, OUT[1], OUT[0])
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
-    assert np.max(np.abs(got - want)) < 0.05  # normalized units
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_fused_resize_only_lsb_parity(rng):
-    """normalize=False exposes the raw truncated resize values."""
+    """normalize=False exposes the raw truncated resize values, which
+    are bit-exact with the fixed-point oracle."""
     batch = make_batch(rng, n=1)
-    got = np.asarray(
-        preprocess_fused_batch(batch, RECT, OUT, precise=True, normalize=False)
-    )
-    want = jnp_pipeline(batch, RECT, OUT, normalize=False)
-    assert np.max(np.abs(got - want)) <= 1.0  # <=1 u8 LSB at floor boundaries
-    assert (np.abs(got - want) > 0).mean() < 1e-3
+    got = np.asarray(preprocess_fused_batch(batch, RECT, OUT,
+                                            normalize=False))
+    want = np_pipeline(batch, RECT, OUT, normalize=False)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fused_full_frame_no_crop(rng):
-    batch = make_batch(rng, n=1, h=256, w=384)  # 384*3=1152 lanes
-    got = np.asarray(
-        preprocess_fused_batch(batch, None, (128, 128), precise=True)
-    )
-    want = jnp_pipeline(batch, None, (128, 128))
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
+    batch = make_batch(rng, n=1, h=256, w=384)
+    got = np.asarray(preprocess_fused_batch(batch, None, (128, 128)))
+    want = np_pipeline(batch, None, (128, 128))
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_fused_explicit_stats(rng):
     batch = make_batch(rng, n=1)
     mean = (104.0, 117.0, 123.0)
     stddev = (57.1, 57.4, 58.4)
-    got = np.asarray(
-        preprocess_fused_batch(
-            batch, RECT, OUT, mean=mean, stddev=stddev, precise=True
-        )
-    )
-    want = jnp_pipeline(batch, RECT, OUT, mean=mean, stddev=stddev)
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
-    assert np.max(np.abs(got - want)) < 0.05
+    got = np.asarray(preprocess_fused_batch(batch, RECT, OUT, mean=mean,
+                                            stddev=stddev))
+    want = np_pipeline(batch, RECT, OUT, mean=mean, stddev=stddev)
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_fused_partial_stats(rng):
-    """mean given, stddev self-computed (in-kernel, around the
-    self-mean — matching normalize_jnp's partial-stats convention)."""
+    """mean given, stddev self-computed (around the self-mean, the
+    normalize op's partial-stats convention)."""
     batch = make_batch(rng, n=1)
     mean = (104.0, 117.0, 123.0)
-    got = np.asarray(
-        preprocess_fused_batch(batch, RECT, OUT, mean=mean, precise=True)
-    )
-    want = jnp_pipeline(batch, RECT, OUT, mean=mean)
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
-    assert np.max(np.abs(got - want)) < 0.05
+    got = np.asarray(preprocess_fused_batch(batch, RECT, OUT, mean=mean))
+    want = np_pipeline(batch, RECT, OUT, mean=mean)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_fused_traced_stats(rng):
+    """Statistics may be traced arrays: the chain takes them as operands
+    rather than baking them into the program."""
+    batch = jnp.asarray(make_batch(rng, n=1))
+    mean = jnp.asarray([104.0, 117.0, 123.0], jnp.float32)
+    std = jnp.asarray([57.0, 57.0, 58.0], jnp.float32)
+
+    @jax.jit
+    def run(b, m, s):
+        return preprocess_fused_batch(b, RECT, OUT, mean=m, stddev=s)
+
+    got = np.asarray(run(batch, mean, std))
+    want = np_pipeline(np.asarray(batch), RECT, OUT,
+                       mean=np.asarray(mean), stddev=np.asarray(std))
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_fused_runtime_top(rng):
     """A traced ``top`` must give the same result as the static rect."""
     batch = make_batch(rng, n=1)
-    static = np.asarray(
-        preprocess_fused_batch(batch, RECT, OUT, precise=True)
-    )
-    dynamic = np.asarray(
-        preprocess_fused_batch(
-            batch, RECT, OUT, top=np.int32(int(RECT.top)), precise=True
-        )
-    )
+    static = np.asarray(preprocess_fused_batch(batch, RECT, OUT))
+    dynamic = np.asarray(preprocess_fused_batch(
+        batch, RECT, OUT, top=np.int32(int(RECT.top))))
     np.testing.assert_array_equal(static, dynamic)
-    # A different runtime top equals the jnp pipeline with that rect.
+    # A different runtime top equals the oracle with that rect.
     top2 = 13
     rect2 = vc.VRect(RECT.left, top2, RECT.right, top2 + 320)
-    moved = np.asarray(
-        preprocess_fused_batch(batch, RECT, OUT, top=np.int32(top2), precise=True)
-    )
-    want = jnp_pipeline(batch, rect2, OUT)
-    assert abs(cosine_similarity(moved, want) - 1) < 1e-6
+    moved = np.asarray(preprocess_fused_batch(batch, RECT, OUT,
+                                              top=np.int32(top2)))
+    np.testing.assert_allclose(moved, np_pipeline(batch, rect2, OUT),
+                               atol=ATOL)
 
 
-def test_fused_odd_geometry_assets(rng):
-    """The reference's own odd-geometry assets (176x144, 284x214) run
-    through the fused kernel (round-3 gate lift: wrapper row/lane pad)
-    and match the jnp chain."""
-    import jax.numpy as jnp
-
-    import vacv_tpu as vc
-    from vacv_tpu.utils.compare import cosine_similarity
-
-    for h, w, rect in [(144, 176, None), (214, 284, None),
-                       (214, 284, vc.VRect(10, 6, 270, 202))]:
-        batch = jnp.asarray(
-            rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
-        )
-        out = np.asarray(
-            preprocess_fused_batch(batch, rect, (224, 224), precise=True)
-        )
-        ref = jnp_pipeline(np.asarray(batch), rect, (224, 224))
-        c = cosine_similarity(out, ref)
-        assert abs(c - 1) < 1e-4, (h, w, rect, c)
+def test_runtime_top_compiles_once(rng):
+    """Every top of one geometry is served by the program the first
+    call compiled: later tops trace nothing."""
+    batch = jnp.asarray(make_batch(rng, n=1, h=120, w=160))
+    rect = vc.VRect(8, 0, 8 + 128, 64)
+    tops = (0, 9, 40, 56)
+    outs = [np.asarray(preprocess_fused_batch(batch, rect, (32, 32),
+                                              top=tops[0]))]
+    with count_traces() as traces:
+        outs += [np.asarray(preprocess_fused_batch(batch, rect, (32, 32),
+                                                   top=t))
+                 for t in tops[1:]]
+    assert traces == []
+    frames = np.asarray(batch)
+    for t, got in zip(tops, outs):
+        want = np_pipeline(frames, vc.VRect(8, t, 8 + 128, t + 64),
+                           (32, 32))
+        np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-# ---- NV camera input (decode folded into the fused kernel) -------------
+@pytest.mark.parametrize("h,w,rect", [
+    (144, 176, None),
+    (214, 284, None),
+    (214, 284, vc.VRect(10, 6, 270, 202)),
+])
+def test_fused_odd_geometry_assets(rng, h, w, rect):
+    """The reference's own odd-geometry assets (176x144, 284x214)."""
+    batch = make_batch(rng, n=2, h=h, w=w)
+    got = np.asarray(preprocess_fused_batch(batch, rect, (224, 224)))
+    np.testing.assert_allclose(got, np_pipeline(batch, rect, (224, 224)),
+                               atol=ATOL)
 
-def _nv_ref_pipeline(nv_batch, code, rect, out_size, mean=None,
-                     stddev=None):
-    """decode → crop → resize → CHW f32 → normalize via the jnp ops."""
-    outs = []
-    ow, oh = out_size
-    for i in range(nv_batch.shape[0]):
-        img = vc.cvt_color(np.asarray(nv_batch[i]), code)
-        if rect is not None:
-            img = crop(img, rect)
-        img = resize(img, (ow, oh))
-        img = img.change_layout(vc.CHW).change_dtype("float32")
-        img = normalize_jnp(img, mean, stddev)
-        outs.append(np.asarray(img.data))
-    return np.stack(outs)
 
+def test_fused_odd_output_height(rng):
+    batch = make_batch(rng, n=2)
+    got = np.asarray(preprocess_fused_batch(batch, None, (100, 100)))
+    want = np_pipeline(batch, None, (100, 100))
+    assert got.shape == want.shape == (2, 3, 100, 100)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_fused_rejects_out_of_frame_crop(rng):
+    """Crops past the frame edge, and static tops that would push the
+    crop out of the frame, are rejected rather than clamped."""
+    frames = make_batch(rng, n=1, h=144, w=176)
+    with pytest.raises(ValueError):
+        preprocess_fused_batch(frames, vc.VRect(100, 0, 200, 144), (64, 64))
+    with pytest.raises(ValueError):
+        preprocess_fused_batch(frames, vc.VRect(0, 0, 176, 100), (64, 64),
+                               top=50)
+    with pytest.raises(ValueError):
+        preprocess_fused_batch(frames.astype(np.float32), None, (64, 64))
+
+
+# ---- NV camera input -------------------------------------------------
 
 def _make_nv(rng, n, h, w):
-    from vacv_tpu.utils.io import bgr2nv21_numpy
-
     return np.stack([
         bgr2nv21_numpy(
             rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
@@ -201,143 +201,68 @@ def _make_nv(rng, n, h, w):
     ])
 
 
+def _decode(nv, is_nv12=False):
+    h = nv.shape[0] * 2 // 3
+    return nv_to_bgr(nv[:h], nv[h:], is_nv12)
+
+
+def _nv_ref_pipeline(nv_batch, rect, out_size, is_nv12=False, **kw):
+    dec = np.stack([_decode(f, is_nv12) for f in nv_batch])
+    return np_pipeline(dec, rect, out_size, **kw)
+
+
 @pytest.mark.parametrize("is_nv12", [False, True])
 def test_fused_nv_matches_decode_chain(rng, is_nv12):
-    from vacv_tpu.ops.pallas.preprocess import (
-        nv_plan_supported, preprocess_fused_nv_batch,
-    )
-
-    h, w = 360, 640
-    nv = _make_nv(rng, 2, h, w)
-    code = (vc.ColorCode.COLOR_YUV2BGR_NV12 if is_nv12
-            else vc.ColorCode.COLOR_YUV2BGR_NV21)
+    nv = _make_nv(rng, 2, 360, 640)
     rect = vc.VRect(17, 24, 17 + 600, 24 + 320)
-    assert nv_plan_supported(h, w, 17, 600, 320, 96, 112)
-    got = np.asarray(preprocess_fused_nv_batch(
-        nv, rect, (112, 96), is_nv12=is_nv12, precise=True
-    ))
-    want = _nv_ref_pipeline(nv, code, rect, (112, 96))
+    got = np.asarray(preprocess_fused_nv_batch(nv, rect, (112, 96),
+                                               is_nv12=is_nv12))
+    want = _nv_ref_pipeline(nv, rect, (112, 96), is_nv12=is_nv12)
     assert got.shape == want.shape == (2, 3, 96, 112)
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_fused_nv_rgb_order(rng):
+    nv = _make_nv(rng, 1, 144, 176)
+    bgr = np.asarray(preprocess_fused_nv_batch(nv, None, (64, 48)))
+    rgb = np.asarray(preprocess_fused_nv_batch(nv, None, (64, 48),
+                                               to_rgb=True))
+    np.testing.assert_array_equal(rgb, bgr[:, ::-1])
 
 
 def test_fused_nv_full_frame_explicit_stats(rng):
-    from vacv_tpu.ops.pallas.preprocess import preprocess_fused_nv_batch
-
-    h, w = 144, 176  # the akiyo_qcif camera config — w lane-padded
-    nv = _make_nv(rng, 1, h, w)
+    nv = _make_nv(rng, 1, 144, 176)  # the akiyo_qcif camera config
     mean = (104.0, 117.0, 123.0)
     stddev = (57.1, 57.4, 58.4)
-    got = np.asarray(preprocess_fused_nv_batch(
-        nv, None, (128, 96), mean=mean, stddev=stddev, precise=True
-    ))
-    want = _nv_ref_pipeline(
-        nv, vc.ColorCode.COLOR_YUV2BGR_NV21, None, (128, 96),
-        mean=mean, stddev=stddev,
-    )
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
-
-
-def test_fused_nv_rejects_unsupported():
-    from vacv_tpu.ops.pallas.preprocess import nv_plan_supported
-
-    # odd Y height (not 8-aligned) -> decode + jnp chain
-    assert not nv_plan_supported(214, 284, 0, 284, 214, 224, 224)
-    # crop below the chunk floor
-    assert not nv_plan_supported(360, 640, 0, 640, 24, 64, 64)
-
-
-def test_fused_nv_bottom_and_full_crops_plan():
-    """Round-4 lift: the stacked buffer is wrapper-padded to 8-aligned
-    rows, so h*3/2 % 8 != 0 no longer makes the last chroma rows
-    DMA-unreachable — bottom and full-height crops now plan."""
-    from vacv_tpu.ops.pallas.preprocess import nv_plan_supported
-
-    # h=1080: buffer rows 1620 (1620 % 8 = 4).  Full-height crop plans.
-    assert nv_plan_supported(1080, 1920, 0, 1920, 1080, 224, 224)
-    # Bottom crop (rows 44..1080) plans too.
-    assert nv_plan_supported(1080, 1920, 64, 1792, 1036, 224, 224, top=44)
-    # The standard inset crop keeps planning.
-    assert nv_plan_supported(1080, 1920, 64, 1792, 1036, 224, 224, top=28)
-    # h=720: buffer rows 1080 (mult of 8) — unchanged.
-    assert nv_plan_supported(720, 1280, 0, 1280, 720, 224, 224)
-    # h=360 full-height (540 buffer rows, % 8 = 4): now plans.
-    assert nv_plan_supported(360, 640, 0, 640, 360, 224, 224)
-    # Runtime-top planning (top=None validates every admissible top).
-    assert nv_plan_supported(1080, 1920, 64, 1792, 720, 224, 224, top=None)
+    got = np.asarray(preprocess_fused_nv_batch(nv, None, (128, 96),
+                                               mean=mean, stddev=stddev))
+    want = _nv_ref_pipeline(nv, None, (128, 96), mean=mean, stddev=stddev)
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_fused_nv_full_height_matches_chain(rng):
-    """The newly-planable full-height crop of a short NV frame must
-    match the decode+chain reference."""
-    from vacv_tpu.ops.pallas.preprocess import preprocess_fused_nv_batch
-
     nv = _make_nv(rng, 2, 360, 640)
-    got = np.asarray(preprocess_fused_nv_batch(
-        nv, None, (112, 96), precise=True))
-    want = _nv_ref_pipeline(
-        nv, vc.ColorCode.COLOR_YUV2BGR_NV21, None, (112, 96))
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
+    got = np.asarray(preprocess_fused_nv_batch(nv, None, (112, 96)))
+    np.testing.assert_allclose(got, _nv_ref_pipeline(nv, None, (112, 96)),
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("top", [0, 4, 37, 120])
 def test_fused_nv_runtime_top_matches_static(rng, top):
-    """Round-4 lift: a runtime crop top (python int or traced scalar)
-    must reproduce the equivalent static-top result exactly."""
-    from vacv_tpu.ops.pallas.preprocess import preprocess_fused_nv_batch
-
+    """A runtime crop top (python int or traced scalar) reproduces the
+    equivalent static-top result exactly."""
     h, w, ch = 360, 640, 224
     nv = _make_nv(rng, 1, h, w)
     rect = vc.VRect(32, top, 32 + 512, top + ch)
-    want = np.asarray(preprocess_fused_nv_batch(
-        nv, rect, (128, 96), precise=True))
+    want = np.asarray(preprocess_fused_nv_batch(nv, rect, (128, 96)))
     rect0 = vc.VRect(32, 0, 32 + 512, ch)
-    got = np.asarray(preprocess_fused_nv_batch(
-        nv, rect0, (128, 96), top=np.int32(top), precise=True))
-    np.testing.assert_allclose(got, want, atol=1e-6)
+    got = np.asarray(preprocess_fused_nv_batch(nv, rect0, (128, 96),
+                                               top=np.int32(top)))
+    np.testing.assert_array_equal(got, want)
 
 
-def test_fused_odd_output_height(rng):
-    """Odd (non-multiple-of-8) output heights: the accumulator pads to
-    ceil8(oh) and the out-row windows stay 8-ALIGNED (round-3 review
-    finding: the oh - row_win clamp broke the alignment the kernel's
-    multiple_of hint promises — silent corruption on device)."""
-    from vacv_tpu.ops.pallas.preprocess import _plan
-
-    p = _plan(360, 640, 0, 640, 360, 100, 100)
-    assert p is not None
-    assert all(r % 8 == 0 for r in p.out_row0), p.out_row0
-    batch = make_batch(rng, n=2)
-    got = np.asarray(
-        preprocess_fused_batch(batch, None, (100, 100), precise=True)
-    )
-    want = jnp_pipeline(batch, None, (100, 100))
-    assert got.shape == want.shape == (2, 3, 100, 100)
-    assert abs(cosine_similarity(got, want) - 1) < 1e-6
-
-
-def test_fused_rejects_out_of_frame_crop(rng):
-    """Crops past the REAL frame edge must be rejected, not silently
-    resized over pad pixels (round-3 review finding)."""
-    assert not plan_supported(144, 176, 100, 100, 144, 64, 64)
-    with pytest.raises(ValueError):
-        preprocess_fused_batch(
-            make_batch(rng, n=1, h=144, w=176),
-            vc.VRect(100, 0, 200, 144), (64, 64),
-        )
-
-
-def test_fused_nv_inset_crop_skips_row_pad():
-    """Round-4 review finding: inset crops of h*3//2 % 8 != 0 frames
-    must not pay the full-batch row-pad copy; only crops whose chroma
-    windows reach the misaligned tail may set needs_pad."""
-    from vacv_tpu.ops.pallas.preprocess import _nv_pad_w, _plan_nv
-
-    wp = _nv_pad_w(1920)
-    inset = _plan_nv(1080, wp, 28, 64, 1792, 1036, 224, 224)
-    assert inset is not None and not inset.needs_pad
-    full = _plan_nv(1080, wp, 0, 0, 1920, 1080, 224, 224)
-    assert full is not None and full.needs_pad
-    # aligned-buffer frames (720p: 1080 rows) never need the pad
-    aligned = _plan_nv(720, _nv_pad_w(1280), 0, 0, 1280, 720, 224, 224)
-    assert aligned is not None and not aligned.needs_pad
+def test_fused_nv_rejects_bad_buffers():
+    with pytest.raises(ValueError):  # odd width: VU pairs split
+        preprocess_fused_nv_batch(np.zeros((1, 36, 25), np.uint8))
+    with pytest.raises(ValueError):  # rows not a multiple of 3
+        preprocess_fused_nv_batch(np.zeros((1, 35, 24), np.uint8))

@@ -1,12 +1,12 @@
-"""vacv_tpu — a TPU-native image-preprocessing engine in JAX/Pallas.
+"""vacv_tpu — an image-preprocessing engine in JAX.
 
 From-scratch rebuild of the capabilities of the ``vacv`` library
 (reference: ``b1xian/arm-neon-opencv``): the vision-model front-end ops
 yuv2bgr, crop, layout_change, dtype_change, resize (bilinear/bicubic/
 nearest/area), mean_stddev, normalize, warp_affine, fused
 resize_normalize / warp_affine_normalize, match_template, minMaxIdx and
-imencode — implemented as XLA programs and Pallas kernels instead of
-ARM NEON intrinsics, with batch-of-frames scale-out over TPU meshes.
+imencode — implemented as XLA programs instead of ARM NEON
+intrinsics, with batch-of-frames scale-out over device meshes.
 
 The flat namespace mirrors the reference's ``va_cv::`` facade
 (``/root/reference/src/cv/cv.h:85-239``).

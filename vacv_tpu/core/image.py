@@ -2,7 +2,7 @@
 
 The reference implements a ref-counted C++ tensor with an inline atomic
 refcount, a custom allocator, and hand-written layout/dtype conversion
-kernels (``/root/reference/src/common/tensor.{h,cpp}``).  On TPU none of
+kernels (``/root/reference/src/common/tensor.{h,cpp}``).  In JAX none of
 that machinery is needed: a ``jax.Array`` already provides dtype, shape,
 device memory and lifetime management, so ``Image`` collapses to a thin
 pytree of (array, layout metadata).  The layout/dtype *kernels* live in

@@ -1,6 +1,6 @@
 """Core enums and geometry types for vacv_tpu.
 
-TPU-native re-design of the reference vacv core data layer
+JAX re-design of the reference vacv core data layer
 (``/root/reference/src/common/vision_structs.h:6-192`` and
 ``/root/reference/src/cv/cv.h:11-74``).  The reference carries layout /
 dtype / geometry as runtime fields on a ref-counted C++ ``Tensor``; here
@@ -18,9 +18,8 @@ class Layout(enum.Enum):
 
     Mirrors ``vision::VTensorLayout`` (reference ``tensor.h:21-24``).
     ``HWC`` is the interchange layout (what cv2/PIL produce); ``CHW`` is
-    the canonical *compute* layout on TPU: W rides the 128-wide lane
-    dimension and H the sublanes, so per-channel planes tile cleanly
-    into VMEM and feed the MXU for separable resampling.
+    the canonical *compute* layout: per-channel planes feed the
+    separable resampling matmuls directly.
     """
 
     HWC = "HWC"

@@ -9,22 +9,25 @@ multi-chip serving.
 
 The per-stage structure mirrors the reference call chains
 (e.g. test_crop.cpp:44-89's crop→layout→dtype chain and
-resize_normalize.cpp:15-107's fused pipeline), but under ``jit`` all
-stages fuse: the u8 source is read from HBM once; the resize matmuls,
-dtype widen, and normalize run out of VMEM.
+resize_normalize.cpp:15-107's fused pipeline); under ``jit`` XLA fuses
+the stages into as few device kernels as it can.
+
+``preprocess_fused_batch`` / ``preprocess_fused_nv_batch`` run the same
+chain with a *runtime* crop top, so a moving camera ROI re-uses one
+compiled program for every position.
 """
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-from .. import config
 from ..core.image import Image
 from ..core.types import ColorCode, InterMode, Layout, VRect
-from ..ops.crop import crop
+from ..ops.crop import crop, crop_dynamic
 from ..ops.cvt_color import cvt_color
 from ..ops.normalize import normalize
 from ..ops.resize import resize
@@ -95,252 +98,29 @@ class Preprocessor:
             if cfg.warp is not None:
                 from ..ops.warp_affine import warp_affine
 
-                # Planar hoist (round 4): the warp kernel and the
-                # resize matmuls are plane-native; converting to CHW
-                # once BEFORE the warp removes three HWC round-trips
-                # at the intermediate sizes (the warp op would
-                # otherwise transpose planes→HWC, resize HWC→planes→
-                # HWC, and change_layout HWC→CHW again).  Outputs are
-                # bit-identical — only the layout bookkeeping moves.
+                # Planar hoist: the warp and the resize matmuls are
+                # plane-native; converting to CHW once BEFORE the warp
+                # removes three HWC round-trips at the intermediate
+                # sizes (the warp op would otherwise transpose
+                # planes→HWC, resize HWC→planes→HWC, and change_layout
+                # HWC→CHW again).  Outputs are bit-identical — only
+                # the layout bookkeeping moves.
                 img = img.change_layout(Layout.CHW)
                 m, dsize = cfg.warp
                 img = warp_affine(img, [list(r) for r in m], tuple(dsize))
-            return tail(img)
-
-        tail = self._tail_fn()
-        return run
-
-    def _tail_fn(self):
-        """The post-warp stage chain (resize → layout → f32 →
-        normalize) as a per-image function — shared verbatim by the
-        per-image build and the warp-folded batch path so the two
-        routes stay bit-identical past the warp."""
-        cfg = self.cfg
-
-        def tail(img):
             if cfg.out_size is not None:
                 w, h = cfg.out_size
                 img = resize(img, (w, h), interpolation=cfg.interpolation)
             img = img.change_layout(cfg.out_layout)
             img = img.change_dtype(jnp.float32)
             if cfg.normalize:
-                # Dispatcher call: picks the fused pallas normalize
-                # where it applies, jnp otherwise (normalize.py:57-69).
                 img = normalize(img, cfg.mean, cfg.stddev)
             return img.data
 
-        return tail
-
-    # -- fused-kernel routing -------------------------------------
-    def _fused_geometry(self, shape, dtype):
-        """(nv, left, top, cw, ch, oh, ow) when the whole pipeline can
-        run as ONE fused Pallas kernel for this input shape, else None
-        (``nv``: None for the BGR kernel, else an (is_nv12, to_rgb)
-        pair for the NV kernel).
-
-        The fused kernel covers the reference's flagship chain
-        (crop → bilinear resize → CHW f32 → normalize — BASELINE
-        config 4); anything else uses the XLA-fused jnp chain.
-        """
-        cfg = self.cfg
-        if not config.use_pallas():
-            return None
-        # Round-5 (VERDICT item 5): cubic and nearest resize route
-        # through the fused BGR kernel too — the banded weight plan is
-        # tap-count-agnostic (ops/pallas/preprocess.py:_resize_weights),
-        # so a cubic pipeline no longer silently drops to the vmapped
-        # chain.  The NV camera kernel stays linear-only (the camera
-        # chain the reference fuses is bilinear; resize_naive.cpp).
-        interp = {
-            InterMode.INTER_LINEAR: "linear",
-            InterMode.INTER_CUBIC: "cubic",
-            InterMode.INTER_NEAREST: "nearest",
-        }.get(InterMode(cfg.interpolation))
-        if (
-            cfg.warp is not None
-            or cfg.out_size is None
-            or interp is None
-            or cfg.out_layout != Layout.CHW
-        ):
-            return None
-        nv = None  # None = BGR input; else (is_nv12, to_rgb)
-        if cfg.color_code is not None:
-            if interp != "linear":
-                return None
-            code = ColorCode(cfg.color_code)
-            nv = {
-                ColorCode.COLOR_YUV2BGR_NV21: (False, False),
-                ColorCode.COLOR_YUV2BGR_NV12: (True, False),
-                ColorCode.COLOR_YUV2RGB_NV21: (False, True),
-                ColorCode.COLOR_YUV2RGB_NV12: (True, True),
-            }.get(code)
-            if nv is None:
-                return None
-            if len(shape) != 2 or dtype != jnp.uint8 or shape[0] % 3:
-                return None
-            h, w = shape[0] * 2 // 3, shape[1]
-        else:
-            if len(shape) != 3 or shape[-1] != 3 or dtype != jnp.uint8:
-                return None
-            h, w, _ = shape
-        if cfg.crop_rect is None:
-            left, top, cw, ch = 0, 0, w, h
-        else:
-            left, top, cw, ch = cfg.crop_rect.int_bounds()
-        ow, oh = int(cfg.out_size[0]), int(cfg.out_size[1])
-        from ..ops.pallas.preprocess import (
-            nv_plan_supported, plan_supported,
-        )
-
-        ok = (
-            nv_plan_supported(h, w, left, cw, ch, oh, ow, top)
-            if nv is not None
-            else plan_supported(h, w, left, cw, ch, oh, ow,
-                                interp=interp)
-        )
-        if not ok:
-            return None
-        return (nv, left, top, cw, ch, oh, ow, interp)
-
-    def _run_fused(self, batch, geom):
-        from ..ops.pallas.preprocess import (
-            preprocess_fused_batch, preprocess_fused_nv_batch,
-        )
-
-        cfg = self.cfg
-        nv, left, top, cw, ch, oh, ow, interp = geom
-        rect = VRect(left, top, left + cw, top + ch)
-        kwargs = dict(
-            mean=cfg.mean,
-            stddev=cfg.stddev,
-            normalize=cfg.normalize,
-            # interpret mode (CPU tests) wants the Dekker-exact path;
-            # on TPU plain bf16 matches the jnp chain's MXU numerics.
-            precise=config.pallas_interpret(),
-        )
-        if nv is not None:
-            # Camera chain: decode → crop → resize → normalize in ONE
-            # HBM pass (cvt_color.cpp:151-156 + resize_normalize.cpp).
-            is_nv12, to_rgb = nv
-            return preprocess_fused_nv_batch(
-                batch, rect, (ow, oh), is_nv12=is_nv12, to_rgb=to_rgb,
-                **kwargs
-            )
-        return preprocess_fused_batch(batch, rect, (ow, oh),
-                                      interp=interp, **kwargs)
-
-    def describe_route(self, shape, dtype=None) -> str:
-        """Which execution path a batch of per-image ``shape`` (HWC, or
-        (h*3//2, w) for NV inputs) will take: ``"pallas_fused_nv"``,
-        ``"pallas_fused"``, ``"warp_folded_batch"`` or
-        ``"vmapped_chain"``.
-
-        Round-5 observability (VERDICT r4 weak #5): a pipeline that
-        silently drops to the vmapped chain (~10× off the fused
-        kernel's class) is now inspectable up front instead of only
-        via ``config.kernel_count`` after the fact.
-        """
-        import jax.numpy as jnp
-
-        geom = self._fused_geometry(
-            tuple(shape), jnp.dtype(dtype or jnp.uint8))
-        if geom is not None:
-            return "pallas_fused_nv" if geom[0] is not None else "pallas_fused"
-        if self._warp_fold_ok(tuple(shape), jnp.dtype(dtype or jnp.uint8)):
-            return "warp_folded_batch"
-        return "vmapped_chain"
-
-    # -- warp batch fold ------------------------------------------
-    def _warp_fold_ok(self, shape, dtype) -> bool:
-        """Can a warp-config batch of per-image HWC ``shape`` fold its
-        frame axis into the warp kernel's channel axis?
-
-        Round-5: a vmapped warp pins the kernel to the vmap-safe
-        resident plan (``allow_stream=False`` disables both streaming
-        and the model-ranked candidate order — ops/pallas/
-        warp_affine.py:_plan); folding B frames into one (3·B)-plane
-        off-vmap call lifts both restrictions and amortizes the
-        per-strip field math over every frame.  Only the batching
-        changes — the same kernel serves, so parity with the vmapped
-        chain stays within the plan's 1-ulp coordinate class.
-        """
-        cfg = self.cfg
-        if cfg.warp is None or cfg.color_code is not None:
-            return False
-        if len(shape) != 3 or shape[-1] != 3:
-            return False
-        if not config.use_pallas():
-            return False
-        dt = jnp.dtype(dtype)
-        if dt not in (jnp.dtype(jnp.uint8), jnp.dtype(jnp.float32)):
-            return False
-        if cfg.interpolation != InterMode.INTER_LINEAR:
-            return False
-        import numpy as np
-
-        from ..ops.pallas.warp_affine import warp_supported
-        from ..ops.warp_affine import invert_affine
-
-        m, dsize = cfg.warp
-        marr = np.asarray(m, np.float64).reshape(2, 3)
-        if marr[0, 1] == 0.0 and marr[1, 0] == 0.0:
-            return False  # separable route batches fine under vmap
-        h, w = shape[0], shape[1]
-        if cfg.crop_rect is not None:
-            _, _, w, h = cfg.crop_rect.int_bounds()
-        return warp_supported(
-            invert_affine(marr), h, w, dt.itemsize,
-            w_out=int(dsize[0]), h_out=int(dsize[1]),
-            c=3, allow_stream=True, interp="linear",
-        )
-
-    def _run_warp_fold(self, batch):
-        cfg = self.cfg
-        from ..ops.warp_affine import warp_affine
-
-        b = batch.shape[0]
-        if cfg.crop_rect is not None:
-            left, top, cw, ch = cfg.crop_rect.int_bounds()
-            batch = batch[:, top : top + ch, left : left + cw]
-        planes = jnp.transpose(batch, (0, 3, 1, 2)).reshape(
-            b * 3, batch.shape[1], batch.shape[2]
-        )
-        m, dsize = cfg.warp
-        wimg = warp_affine(
-            Image(planes, Layout.CHW), [list(r) for r in m], tuple(dsize)
-        )
-        h2, w2 = wimg.data.shape[-2], wimg.data.shape[-1]
-        tail = self._tail_fn()
-        return jax.vmap(lambda p: tail(Image(p, Layout.CHW)))(
-            wimg.data.reshape(b, 3, h2, w2)
-        )
-
-    def _batch_fn(self):
-        """Traceable (N, ...) batch function: fused kernel when the
-        config+shape plan allows; warp configs fold the frame axis
-        into the warp kernel's channel axis; vmapped per-image chain
-        otherwise."""
-        per_image = self._build()
-
-        def run_batch(batch):
-            geom = self._fused_geometry(batch.shape[1:], batch.dtype)
-            if geom is not None:
-                return self._run_fused(batch, geom)
-            if self._warp_fold_ok(batch.shape[1:], batch.dtype):
-                return self._run_warp_fold(batch)
-            return jax.vmap(per_image)(batch)
-
-        return run_batch
+        return run
 
     def __call__(self, arr):
-        geom = self._fused_geometry(arr.shape, getattr(arr, "dtype", None))
-        if geom is not None:
-            return self._fused_one(arr, geom)
         return self._fn(arr)
-
-    @functools.partial(jax.jit, static_argnums=(0, 2))
-    def _fused_one(self, arr, geom):
-        return self._run_fused(arr[None], geom)[0]
 
     def batch(self, arr):
         """Single-device batch call over (N, H, W, C) frames."""
@@ -348,7 +128,7 @@ class Preprocessor:
 
     @functools.cached_property
     def _jit_batch(self):
-        return jax.jit(self._batch_fn())
+        return jax.jit(self.batch_fn)
 
     @property
     def fn(self):
@@ -357,22 +137,21 @@ class Preprocessor:
 
     @functools.cached_property
     def batch_fn(self):
-        """The raw traceable (N, ...) batch function — routes through
-        the fused kernel when the trace-time shape plan allows.
-        Cached: a fresh closure per access would retrace under jit."""
-        return self._batch_fn()
+        """The raw traceable (N, ...) batch function: the per-image
+        chain vmapped over frames.  Cached: a fresh closure per access
+        would retrace under jit."""
+        return jax.vmap(self._build())
 
     def batched(self, mesh=None):
         """Sharded batch version: (N, ...) with N split over the mesh's
-        data axis.  Each device runs the fused kernel on its shard when
-        the plan allows (decided at trace time from the shard shape)."""
+        data axis; each device runs the vmapped chain on its shard."""
         if mesh is None:
             mesh = make_mesh()
         from jax.sharding import PartitionSpec as P
         from jax import shard_map
 
         smapped = shard_map(
-            self._batch_fn(),
+            self.batch_fn,
             mesh=mesh,
             in_specs=P(DATA_AXIS),
             out_specs=P(DATA_AXIS),
@@ -382,7 +161,7 @@ class Preprocessor:
 
 
 def slam_frontend_config() -> PreprocessConfig:
-    """The BASELINE.json config-4 flagship: fused normalize pipeline
+    """The BASELINE.json config-4 flagship: normalize pipeline
     (resize → chw → fp32 → normalize) for a SLAM/SfM keyframe
     front-end.  Add a ``crop_rect`` via ``dataclasses.replace`` when
     the camera ROI is known."""
@@ -392,3 +171,95 @@ def slam_frontend_config() -> PreprocessConfig:
         out_layout=Layout.CHW,
         normalize=True,
     )
+
+
+# NV code for each (is_nv12, to_rgb) pair of the runtime-top NV call.
+_NV_CODE = {
+    (False, False): ColorCode.COLOR_YUV2BGR_NV21,
+    (True, False): ColorCode.COLOR_YUV2BGR_NV12,
+    (False, True): ColorCode.COLOR_YUV2RGB_NV21,
+    (True, True): ColorCode.COLOR_YUV2RGB_NV12,
+}
+
+
+@functools.partial(
+    jax.jit, static_argnames=("code", "left", "cw", "ch", "out_size", "norm")
+)
+def _runtime_top_chain(batch, top, mean, stddev, *, code, left, cw, ch,
+                       out_size, norm):
+    """decode → crop at a traced ``top`` → resize → CHW f32 → normalize,
+    vmapped over the frame batch: one compiled program per geometry,
+    whatever the top."""
+
+    def one(frame):
+        img = Image(frame, Layout.HWC)
+        if code is not None:
+            img = _decode_color(img, code)
+        img = crop_dynamic(img, left, top, cw, ch)
+        img = resize(img, out_size)
+        img = img.change_layout(Layout.CHW).change_dtype(jnp.float32)
+        if norm:
+            img = normalize(img, mean, stddev)
+        return img.data
+
+    return jax.vmap(one)(batch)
+
+
+def _runtime_top_call(batch, h, w, crop_rect, out_size, code, top, mean,
+                      stddev, norm):
+    if crop_rect is None:
+        left, top0, cw, ch = 0, 0, w, h
+    else:
+        left, top0, cw, ch = crop_rect.int_bounds()
+    if left < 0 or cw <= 0 or ch <= 0 or left + cw > w or ch > h:
+        raise ValueError("crop rect outside the frame")
+    if top is None:
+        top = top0
+    if isinstance(top, (int, np.integer)) and not 0 <= top <= h - ch:
+        raise ValueError("crop rect outside the frame")
+    as_f32 = lambda v: None if v is None else jnp.asarray(v, jnp.float32)
+    return _runtime_top_chain(
+        batch, jnp.asarray(top, jnp.int32), as_f32(mean), as_f32(stddev),
+        code=code, left=left, cw=cw, ch=ch,
+        out_size=(int(out_size[0]), int(out_size[1])), norm=bool(norm),
+    )
+
+
+def preprocess_fused_batch(batch, crop_rect=None, out_size=(224, 224), *,
+                           top=None, mean=None, stddev=None, normalize=True):
+    """crop → bilinear resize → CHW → f32 → normalize over a
+    (N, H, W, 3) u8 batch, returning (N, 3, oh, ow) f32.
+
+    ``top`` (python int or traced scalar) overrides ``crop_rect.top``
+    at run time with the same crop height: a moving ROI re-uses one
+    compiled program.  A traced top outside ``[0, H - crop_h]`` is
+    clamped into the frame (``lax.dynamic_slice`` semantics).
+    ``mean`` / ``stddev`` are per-channel constants or arrays; None
+    computes per-image statistics.
+    """
+    if batch.dtype != jnp.uint8 or batch.ndim != 4 or batch.shape[-1] != 3:
+        raise ValueError("preprocess_fused_batch needs (N, H, W, 3) uint8")
+    _, h, w, _ = batch.shape
+    return _runtime_top_call(batch, h, w, crop_rect, out_size, None, top,
+                             mean, stddev, normalize)
+
+
+def preprocess_fused_nv_batch(batch, crop_rect=None, out_size=(224, 224), *,
+                              is_nv12=False, to_rgb=False, top=None,
+                              mean=None, stddev=None, normalize=True):
+    """NV decode → crop → bilinear resize → planar f32 → normalize over
+    a (N, H*3//2, W) u8 batch of stacked NV buffers (Y over interleaved
+    VU — NV21 by default, ``is_nv12=True`` for UV order).  Returns
+    (N, 3, oh, ow) f32: B, G, R planes, or R, G, B with ``to_rgb``.
+    ``top``, ``mean`` and ``stddev`` as in ``preprocess_fused_batch``;
+    the decode follows the reference camera chain
+    (cvt_color.cpp:151-156 → resize_normalize.cpp:15-107).
+    """
+    if batch.dtype != jnp.uint8 or batch.ndim != 3:
+        raise ValueError("preprocess_fused_nv_batch needs (N, H*3//2, W) uint8")
+    _, hbuf, w = batch.shape
+    if hbuf % 3 or w % 2:
+        raise ValueError("NV buffer needs H*3//2 rows and even width")
+    return _runtime_top_call(batch, hbuf * 2 // 3, w, crop_rect, out_size,
+                             _NV_CODE[(bool(is_nv12), bool(to_rgb))], top,
+                             mean, stddev, normalize)

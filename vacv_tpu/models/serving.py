@@ -1,18 +1,13 @@
 """Streamed (per-frame) serving with bounded in-flight depth.
 
-Round-3 measurement (benchmarks/RESULTS.md, warp section): successive
-INDEPENDENT per-frame kernel launches overlap on the TPU — one call's
-HBM DMA runs under the previous call's compute — worth ~30% throughput
-at 1440p warps (0.54 ms effective vs 0.79 ms serialized).  A vmapped
-batch does NOT get this overlap: it is one kernel whose grid executes
-sequentially.  So for latency-tolerant serving the fastest dispatch
-shape is a stream of per-frame calls with a few in flight, not a
-batch.  JAX's async dispatch provides the overlap for free; this
-module adds the bounded depth (backpressure) and ordering a serving
-loop needs.
+For a stream of single frames (a camera callback) the dispatch shape is
+a sequence of per-frame calls with a few in flight: JAX's asynchronous
+dispatch lets the host enqueue frame i+1 while the device works on
+frame i.  This module adds the bounded depth (backpressure) and the
+ordering a serving loop needs.
 
 The reference has no serving layer (its closest analogue is the adb
-run loop, run.sh:96-104); this is the TPU-production counterpart.
+run loop, run.sh:96-104).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host utilities (``native/vacv_host.cpp``).
 
-The TPU compute path is JAX/XLA/Pallas; this module binds the C++ host
+The device compute path is JAX/XLA; this module binds the C++ host
 layer — camera-format synthesis/decode, staging conversions, and the
 cosine metric — built with OpenMP + auto-vectorization (the x86 role of
 the reference's hand-written NEON util layer, ``src/util/``).

@@ -4,10 +4,10 @@ The reference implements crop three ways — scalar row copies, NEON
 16-byte block copies with scalar tails, and an evolution ladder of CUDA
 kernels culminating in a zero-copy grid-stride version
 (``/root/reference/src/cv/crop.cpp:44-398``,
-``crop_cuda_basic_dynamic_threads_zero_copy.cu:18-54``).  On TPU a crop
-with a *static* rectangle is a static slice: XLA turns it into a strided
-DMA from HBM, which is already speed-of-light — the entire NEON/CUDA
-kernel ladder collapses into an indexing expression.  For rectangles
+``crop_cuda_basic_dynamic_threads_zero_copy.cu:18-54``).  Here a crop
+with a *static* rectangle is a static slice, which XLA folds into the
+consumer's reads or emits as one strided copy — the NEON/CUDA kernel
+ladder collapses into an indexing expression.  For rectangles
 only known at run time (traced values), ``crop_dynamic`` lowers to
 ``lax.dynamic_slice`` (sizes must still be static under jit).
 

@@ -3,7 +3,7 @@
 The reference's NEON path is ~300 lines of ``vld2_u8`` deinterleave +
 Q7 integer math + a 3-stage ``vtrn`` transpose network to restore pixel
 order before ``vst3_u8`` (``/root/reference/src/cv/cvt_color.cpp:184-494``).
-On TPU the same computation is a handful of VPU-wide integer ops on
+Here the same computation is a handful of elementwise integer ops on
 whole planes: the 2×2 chroma upsample is a broadcast-reshape, and the
 interleave/deinterleave problem disappears because we keep channels
 planar.  The Q7 coefficient math matches ``nv_to_bgr_naive``
@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from .. import config
 from ..core.image import Image, as_image
 from ..core.types import ColorCode, Layout
 
@@ -51,25 +50,6 @@ def _upsample2(x):
     return x.reshape(2 * h, 2 * w)
 
 
-def nv_to_bgr_planes(y_plane, vu_plane, *, is_nv12: bool):
-    """Planar NV→BGR core: returns (b, g, r) uint8 planes of Y's shape.
-
-    ``y_plane``: (h, w) u8; ``vu_plane``: (h//2, w) u8 interleaved
-    chroma pairs (NV21: V,U; NV12: U,V).
-
-    The pallas kernel is the TPU production path: validated bit-exact
-    against the jnp implementation on hardware and ~130× faster at
-    1080p (33 µs vs 4.4 ms — XLA lowers the strided chroma deinterleave
-    and 2×2 upsample into lane-granularity ops, while the kernel's
-    rank-2 roll+select + MXU row-repeat runs at u8 bandwidth).
-    """
-    if config.use_pallas():
-        from .pallas.yuv2bgr import nv_to_bgr_pallas
-
-        return nv_to_bgr_pallas(y_plane, vu_plane, is_nv12=is_nv12)
-    return nv_to_bgr_planes_jnp(y_plane, vu_plane, is_nv12=is_nv12)
-
-
 def _yuv_to_bgr_core(y_i32, v_full, u_full):
     """Q7 integer YUV→BGR on full-resolution centred chroma planes.
 
@@ -86,12 +66,15 @@ def _yuv_to_bgr_core(y_i32, v_full, u_full):
     return b, g, r
 
 
-def nv_to_bgr_planes_jnp(y_plane, vu_plane, *, is_nv12: bool):
-    """Pure-jnp reference implementation (XLA fuses the whole thing
-    into one elementwise kernel over the planes).
+def nv_to_bgr_planes(y_plane, vu_plane, *, is_nv12: bool):
+    """Planar NV→BGR core: returns (b, g, r) uint8 planes of Y's shape.
+
+    ``y_plane``: (h, w) u8; ``vu_plane``: (h//2, w) u8 interleaved
+    chroma pairs (NV21: V,U; NV12: U,V).  XLA fuses the whole decode
+    into one elementwise kernel over the planes.
 
     Odd Y heights are supported: the upsampled chroma (always an even
-    row count) is sliced to the Y height — the TPU form of the
+    row count) is sliced to the Y height — the planar form of the
     reference's zerobuf/writebuf scratch-row trick for the final odd
     row pair (cvt_color.cpp:52-66).
     """

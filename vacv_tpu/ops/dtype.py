@@ -13,8 +13,8 @@ Reference semantics (``/root/reference/src/common/tensor.cpp:297-502``):
   behaviour is the well-defined one and is what the reference actually
   ships on its primary ARM targets).
 
-On TPU this is a pure element-wise VPU op; XLA fuses it into whatever
-producer/consumer surrounds it, so there is no Pallas kernel.
+This is a pure element-wise op; XLA fuses it into whatever
+producer/consumer surrounds it.
 """
 from __future__ import annotations
 
@@ -46,8 +46,7 @@ def change_dtype(src, dtype) -> Image:
     Tensor (tensor.h:12-18, TensorConverter maps CV_64FC*,
     tensor_converter.cpp:15-44) and carries an fp16 resize in its
     graveyard (src_deprecated/paddle-resize/cubic_resize_float16.cpp)
-    — half precision is first-class here since bf16 is the TPU's
-    native narrow float, and f64 is admitted for container parity
+    — half precision (bf16/f16) is first-class here, and f64 is admitted for container parity
     (JAX demotes to f32 storage unless ``jax_enable_x64`` is set; no
     reference kernel ever computes in f64).  float→u8 always
     truncates toward zero and saturates.

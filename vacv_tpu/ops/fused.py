@@ -5,8 +5,7 @@ In the reference these exist only as OpenCV call chains
 ``warp_affine_normalize.cpp:13-189``) — the naive/NEON variants are
 empty todos.  Here they are first-class: composing our ops under one
 ``jit`` lets XLA fuse the dtype conversion and the normalize affine
-directly into the resize matmuls / warp gather, so the fused pipeline
-reads the source image from HBM exactly once.
+into the resize matmuls / warp gather.
 
 Semantic parity with the OpenCV chains: geometric op on the *input
 dtype* (u8 stays u8 through resize, as cv::resize does), then convert
@@ -18,7 +17,7 @@ from __future__ import annotations
 from ..core.image import Image, as_image
 from ..core.types import BorderMode, InterMode, VScalar, VSize
 from .dtype import change_dtype
-from .normalize import normalize_jnp
+from .normalize import normalize
 from .resize import resize
 from .warp_affine import warp_affine, warp_affine_rot
 import jax.numpy as jnp
@@ -33,95 +32,29 @@ def resize_normalize(
     mean=None,
     stddev=None,
 ) -> Image:
-    """Parity: ``va_cv::resize_normalize`` (cv.h:154-158).
-
-    On TPU the u8-HWC bilinear case runs through the fused Pallas
-    preprocess kernel (one HBM read of the source; resize matmuls +
-    moments + scale in VMEM) with an XLA transpose back to the
-    caller's HWC layout; other configs use the XLA-fused jnp chain.
-    """
-    img = as_image(src)
-    fused = _resize_normalize_fused(img, dsize, fx, fy, interpolation,
-                                    mean, stddev)
-    if fused is not None:
-        return fused
-    out = resize(img, dsize, fx, fy, interpolation)
+    """Parity: ``va_cv::resize_normalize`` (cv.h:154-158)."""
+    out = resize(as_image(src), dsize, fx, fy, interpolation)
     out = change_dtype(out, jnp.float32)
-    return normalize_jnp(out, mean, stddev)
-
-
-def _resize_normalize_fused(img, dsize, fx, fy, interpolation, mean,
-                            stddev):
-    """The fused-kernel route for resize_normalize, or None."""
-    from .. import config
-    from ..core.types import Layout
-
-    if not config.use_pallas():
-        return None
-    data = img.data
-    if (
-        img.layout != Layout.HWC
-        or data.ndim != 3
-        or data.shape[-1] != 3
-        or data.dtype != jnp.uint8
-        or InterMode(interpolation) != InterMode.INTER_LINEAR
-    ):
-        return None
-    h, w, _ = data.shape
-    if isinstance(dsize, VSize):
-        dsize = (dsize.w, dsize.h)
-    if dsize is None or not tuple(dsize):
-        ow, oh = int(round(w * fx)), int(round(h * fy))
-    else:
-        ow, oh = int(dsize[0]), int(dsize[1])
-        if ow == 0 or oh == 0:
-            ow, oh = int(round(w * fx)), int(round(h * fy))
-    if ow <= 0 or oh <= 0:
-        return None  # let resize() raise its documented ValueError
-    from .pallas.preprocess import plan_supported, preprocess_fused_batch
-
-    if not plan_supported(h, w, 0, w, h, oh, ow):
-        return None
-    try:
-        chw = preprocess_fused_batch(
-            data[None], None, (ow, oh), mean=mean, stddev=stddev,
-            # CPU interpret (tests) wants the Dekker-exact matmuls; on
-            # TPU plain bf16 matches the jnp chain's MXU numerics.
-            precise=config.pallas_interpret(),
-        )[0]
-    except (TypeError, ValueError):
-        return None  # traced/array stats etc. — jnp chain handles them
-    return Image(jnp.transpose(chw, (1, 2, 0)), Layout.HWC)
+    return normalize(out, mean, stddev)
 
 
 def _warp_normalize_tail(img, warp_fn, mean, stddev) -> Image:
     """Shared body of the two warp_affine_normalize forms.
 
-    Planar hoist (round 4): the warp kernel and the normalize kernel
-    are plane-native, so an HWC input converts to CHW once BEFORE the
-    warp — the warp op's internal planes→HWC transpose, the normalize
-    op's HWC→planes transpose, and their inverses all disappear.  The
-    warped u8 feeds the stats pass straight out of the kernel (XLA
-    fuses the f32 widen into the reductions), keeping the chain at one
-    HBM read of the source + one read/write of the warp output —
-    against the reference's three full OpenCV passes
-    (warp_affine_normalize.cpp:13-189).  The hoist itself changes no
-    numerics; the self-stats case additionally routes to the pallas
-    CHW normalize kernel, whose Chan-merged moments can differ from
-    the jnp two-pass moments in the last f32 bits (well inside the
-    1e-4 bar).  The result keeps the caller's layout.
+    Planar hoist: the warp and normalize are plane-native, so an HWC
+    input converts to CHW once BEFORE the warp — the warp op's internal
+    planes→HWC transpose, the normalize op's HWC→planes transpose, and
+    their inverses all disappear (the reference runs three full OpenCV
+    passes, warp_affine_normalize.cpp:13-189).  The hoist changes no
+    numerics.  The result keeps the caller's layout.
     """
     from ..core.types import Layout
-    from .normalize import normalize
 
     hwc = img.data.ndim == 3 and img.layout == Layout.HWC
     if hwc:
         img = img.change_layout(Layout.CHW)
     out = warp_fn(img)
     out = change_dtype(out, jnp.float32)
-    # Dispatcher: the CHW-f32 self-stats case routes to the two-phase
-    # pallas normalize kernel (faster than XLA's fused reductions
-    # there); explicit stats use the jnp path.
     out = normalize(out, mean, stddev)
     if hwc:
         out = out.change_layout(Layout.HWC)

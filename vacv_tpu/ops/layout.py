@@ -2,12 +2,11 @@
 
 The reference hand-vectorizes 3-channel de/interleave with NEON
 ``vld3q_u8``/``vst1q_u8`` 16-pixel blocks plus scalar fallbacks
-(``/root/reference/src/common/tensor.cpp:160-295,393-457``).  On TPU a
+(``/root/reference/src/common/tensor.cpp:160-295,393-457``).  Here a
 layout change is a plain transpose: XLA emits an optimal tiled
 relayout copy (and, when the transpose feeds another op under the same
 ``jit``, usually folds it into the consumer's layout assignment so no
-copy materializes at all).  There is deliberately no Pallas kernel here
-— a hand-written relayout cannot beat XLA's.
+copy materializes at all).
 """
 from __future__ import annotations
 

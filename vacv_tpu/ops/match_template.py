@@ -1,13 +1,12 @@
-"""match_template + minMaxIdx — all six TM_* modes, MXU-native.
+"""match_template + minMaxIdx — all six TM_* modes as matmuls.
 
 The reference wraps OpenCV's ``matchTemplate``/``minMaxIdx`` with naive
 /SSE/NEON slots left as todos
 (``/root/reference/src/cv/match_template.cpp:13-61``).  We implement the
-modes natively: the correlation core runs the resident-image Pallas
-kernel (``ops/pallas/match_template.py`` — one HBM read of the image,
-shifted-template-stack MXU dots) with an unfold-matmul XLA fallback,
-and the windowed sums the SQDIFF/NORMED/CCOEFF families need are
-separable banded ones-matmuls.  Formulas follow OpenCV's documented
+modes natively: the correlation core is an unfold + one matmul, and the
+windowed sums the SQDIFF/NORMED/CCOEFF families need are separable
+banded ones-matmuls.  Every dot runs at ``Precision.HIGHEST`` (true
+float32; TF32 would lose the windowed sums of squares).  Formulas follow OpenCV's documented
 definitions; multi-channel images sum the numerator/denominator over
 channels.
 """
@@ -19,7 +18,6 @@ import jax.lax as lax
 import jax.numpy as jnp
 import numpy as np
 
-from .. import config
 from ..core.image import Image, as_image
 from ..core.types import Layout, MatchMode
 
@@ -38,11 +36,11 @@ def _box_sum(x, th: int, tw: int):
     """Sliding-window (th, tw) sum over the trailing (H, W) axes of
     ``x`` -> (..., H-th+1, W-tw+1).
 
-    A box sum is separable: two banded ones-matmuls replace the
-    th-amplified ones-kernel unfold the round-3 code used (the single
-    biggest traffic term of the NORMED/SQDIFF/CCOEFF denominators).
-    HIGHEST precision keeps the f32 accumulation faithful — windowed
-    sums of x**2 overflow bf16's 8-bit mantissa badly.
+    A box sum is separable: two banded ones-matmuls replace a
+    th-amplified ones-kernel unfold (the biggest traffic term of the
+    NORMED/SQDIFF/CCOEFF denominators).  HIGHEST precision keeps the
+    f32 accumulation faithful — windowed sums of x**2 need more than
+    TF32's 11 significant bits.
     """
     wv = jnp.asarray(_ones_band(x.shape[-2], th))
     wx = jnp.asarray(_ones_band(x.shape[-1], tw))
@@ -62,31 +60,17 @@ def _nchw(img: Image):
     return d[None]
 
 
-def _corr(x, k, exact_img: bool = False):
+def _corr(x, k):
     """Valid cross-correlation: x (1,C,H,W) with k (1,C,th,tw) ->
     (H-th+1, W-tw+1).
 
-    Fast path (round 4): the resident-image Pallas kernel
-    (``ops/pallas/match_template.py``) — one HBM read of the image,
-    shifted-template-stack MXU dots, diagonal roll epilogue.
-
-    XLA fallback: XLA lowers a one-output-channel 2-D conv to a form
-    the MXU cannot use (measured 126 ms for a 32x32 template over
-    640x360 — 20x slower than single-thread OpenCV).  Instead: a
-    shared vertical unfold ``U[(c,dy), y, xx] = x[c, y+dy, xx]``,
+    A shared vertical unfold ``U[(c,dy), y, xx] = x[c, y+dy, xx]``,
     ONE ``(tw, C*th) @ (C*th, rows*W)`` matmul producing every
     template-column's vertical correlation, and ``tw`` shifted adds.
-    The dot runs on f32 operands at ``Precision.HIGHEST`` (true f32
-    accumulation — XLA's skinny bf16 dots are NOT f32-accumulated on
-    TPU, which broke a manual hi/lo bf16 split here), and y is chunked
-    to bound the unfold buffer.
+    The dot runs on f32 operands at ``Precision.HIGHEST``, and y is
+    chunked to bound the unfold buffer.
     """
     _, c, h, w = x.shape
-    if config.use_pallas():
-        from .pallas.match_template import corr_pallas, corr_supported
-
-        if corr_supported(c, h, w, k.shape[2], k.shape[3]):
-            return corr_pallas(x, k, exact_img=exact_img)
     th, tw = k.shape[2], k.shape[3]
     h_out, w_out = h - th + 1, w - tw + 1
     k2 = jnp.transpose(k[0], (2, 0, 1)).reshape(tw, c * th)
@@ -103,12 +87,9 @@ def _corr(x, k, exact_img: bool = False):
                 for dy in range(th)
             ]
         ).reshape(c * th, rows * w)
-        # HIGHEST precision: true f32 dot semantics.  (A manual Dekker
-        # hi/lo bf16 split measured 0.2% error HERE on device — for
-        # these skinny M=K=tw shapes XLA's bf16 dot does not accumulate
-        # in f32 the way a Mosaic-kernel MXU dot does.)  The K
-        # dimension is tiny (C*th), so the multi-pass cost is
-        # negligible against the unfold traffic.
+        # HIGHEST precision: true f32 dot semantics.  The K dimension
+        # is tiny (C*th), so its cost is small against the unfold
+        # traffic.
         v = lax.dot_general(
             k2, u, (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
@@ -125,7 +106,6 @@ def match_template(src, target, method: MatchMode | int) -> Image:
     (H-th+1, W-tw+1) float32 response map as an ``Image``."""
     method = MatchMode(method)
     simg = as_image(src)
-    exact_img = simg.data.dtype == jnp.uint8  # bf16-exact image values
     x = _nchw(simg)
     t = _nchw(as_image(target))
     k = t  # (1, C, th, tw) used directly as the conv kernel
@@ -133,7 +113,7 @@ def match_template(src, target, method: MatchMode | int) -> Image:
     n = th * tw
 
     if method in (MatchMode.TM_CCORR, MatchMode.TM_CCORR_NORMED):
-        num = _corr(x, k, exact_img)
+        num = _corr(x, k)
         if method == MatchMode.TM_CCORR:
             return Image(num, Layout.HWC)
         wnd2 = _box_sum(jnp.sum(x[0] * x[0], axis=0), th, tw)
@@ -142,7 +122,7 @@ def match_template(src, target, method: MatchMode | int) -> Image:
         return Image(_normed_div(num, denom, sqdiff=False), Layout.HWC)
 
     if method in (MatchMode.TM_SQDIFF, MatchMode.TM_SQDIFF_NORMED):
-        cc = _corr(x, k, exact_img)
+        cc = _corr(x, k)
         wnd2 = _box_sum(jnp.sum(x[0] * x[0], axis=0), th, tw)
         t2 = jnp.sum(k * k)
         num = wnd2 - 2.0 * cc + t2
@@ -154,7 +134,7 @@ def match_template(src, target, method: MatchMode | int) -> Image:
     # CCOEFF family: mean-centred template per channel.
     t_mean = jnp.mean(k, axis=(2, 3), keepdims=True)
     kc = k - t_mean
-    num = _corr(x, kc, exact_img)
+    num = _corr(x, kc)
     if method == MatchMode.TM_CCOEFF:
         return Image(num, Layout.HWC)
 

@@ -5,12 +5,9 @@ the pixels — NEON ``vld3q_f32`` deinterleave with ``vaddvq`` horizontal
 adds, accumulating ``(x-μ)²/N`` elementwise — then applies
 ``(x - μ) / (σ + 1e-6)``
 (``/root/reference/src/cv/normalize_naive.cpp:7-90``,
-``normalize_neon.cpp:13-283``).  On TPU those three linear passes are
-two plane reductions and one fused elementwise op: the reductions
-compile to hierarchical VMEM-tile partial sums (exactly the SURVEY §7.6
-design) and XLA fuses the normalize into neighbouring ops.  A Pallas
-fused single-pass kernel (Σx and Σx² in one read of HBM) is used on TPU
-for the combined mean_stddev+normalize when enabled.
+``normalize_neon.cpp:13-283``).  Here those three linear passes are
+two plane reductions and one elementwise op, which XLA fuses into
+neighbouring ops (SURVEY §7.6).
 
 Semantics parity:
 * input is auto-converted to f32 first (normalize.cpp:84-95);
@@ -21,7 +18,6 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from .. import config
 from ..core.image import Image, as_image
 from ..core.types import Layout
 
@@ -61,28 +57,6 @@ def normalize(src, mean=None, stddev=None) -> Image:
     ``stddev`` are None they are computed from the image itself
     (the reference's empty-tensor convention).
     """
-    img = as_image(src)
-    # Measurement-driven routing (1080p, v5e): XLA's fused reductions
-    # win for HWC (either dtype: lane-interleaved channels cost the
-    # kernel selection matmuls XLA avoids) and for u8 CHW (39 vs
-    # 51 us); the pallas two-phase kernel wins for float CHW — the
-    # pipeline case, normalize after CHW+f32 conversion (81 vs 107 us).
-    if (
-        config.use_pallas()
-        and mean is None
-        and stddev is None
-        and img.data.ndim == 3
-        and img.layout == Layout.CHW
-        and img.data.dtype != jnp.uint8
-    ):
-        from .pallas.normalize import normalize_fused_pallas
-
-        return normalize_fused_pallas(img)
-    return normalize_jnp(img, mean, stddev)
-
-
-def normalize_jnp(src, mean=None, stddev=None) -> Image:
-    """Pure-jnp implementation."""
     img = as_image(src)
     planes, squeeze = _to_planes(img)
     c = planes.shape[0]

@@ -1,22 +1,20 @@
-"""resize — bilinear / bicubic / nearest / area, as MXU matmuls (vacv op #5).
+"""resize — bilinear / bicubic / nearest / area / lanczos4 as two
+separable matrix products (vacv op #5).
 
-This is the headline TPU-first design divergence from the reference.
 The reference resize is a per-output-pixel gather-and-blend loop —
 scalar C with fixed-point coefficients
 (``/root/reference/src/cv/resize_naive.cpp:10-128``) or NEON int16
-lanes with row reuse (``resize_neon.cpp:20-347``).  Gathers are the
-weakest primitive on TPU, but *separable* resampling is exactly a pair
-of small dense matrix products:
+lanes with row reuse (``resize_neon.cpp:20-347``).  Here separable
+resampling is a pair of dense matrix products:
 
     dst = W_y @ src @ W_xᵀ
 
 where ``W_y: (h_out, h_in)`` and ``W_x: (w_out, w_in)`` hold the
 per-output-row / per-output-column interpolation weights.  Every
-interpolation family (nearest / bilinear / bicubic / area) differs only
-in how the weight matrices are built; the device program is always two
-MXU matmuls over channel planes — large, batched, static-shaped, and
-fused by XLA with surrounding dtype/normalize work.  The pass order
-(H-first vs W-first) is chosen to minimize MACs.
+interpolation family differs only in how the weight matrices are built;
+the device program is always two matmuls over channel planes — batched,
+static-shaped, and fused by XLA with surrounding dtype/normalize work.
+The pass order (H-first vs W-first) is chosen to minimize MACs.
 
 Weight construction reproduces the reference's coefficient rules
 exactly:
@@ -30,6 +28,10 @@ exactly:
   boundary folding of out-of-range taps (``resize_naive.cpp:130-185``).
 * nearest / area follow OpenCV semantics (the reference forwards these
   modes to OpenCV, ``resize.cpp:46-49``; we implement them natively).
+
+Matmul precision is chosen per call (``_apply_separable``): on a GPU,
+``Precision.DEFAULT`` runs float32 dots in TF32 (11 significant bits),
+``HIGHEST`` in true float32.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ..core.image import Image, as_image
 from ..core.types import InterMode, Layout, VSize
@@ -55,9 +58,11 @@ def _linear_weights(n_in: int, n_out: int, quantize: bool) -> np.ndarray:
     """
     if n_in == 1:
         return np.ones((n_out, 1), dtype=np.float32)
-    scale = n_in / n_out
+    # float scale, double mapping, float result — the C expression
+    # ``(float)((dx + 0.5) * scale_x - 0.5)`` with a float ``scale_x``.
+    scale = np.float32(n_in) / np.float32(n_out)
     d = np.arange(n_out, dtype=np.float64)
-    f = (d + 0.5) * scale - 0.5
+    f = ((d + 0.5) * np.float64(scale) - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s).astype(np.float32)
     f[s < 0] = 0.0
@@ -238,19 +243,17 @@ def _weight_matrices(
 # banded (2–8 taps per output), so a block of _BAND_BLOCK consecutive
 # outputs only touches a contiguous source band of ~block*scale+taps
 # elements.  Splitting the dense (n_out, n_in) matmul into per-block
-# (block, band) matmuls keeps exact MXU tiles (the block is the output
-# dim, the band only shortens the streamed K dim) while skipping the
-# structurally-zero tiles.  Measured on v5e at the 1080p→224 headline
-# shape this is ~2.2x on the pass it applies to — but ONLY on the
-# *second* pass: banding the first pass slices the original operand,
-# which breaks XLA's fusion of the u8→f32 convert into the dot and
-# costs far more in HBM traffic than the MACs saved.  The reference's
-# row-reuse NEON trick (resize_neon.cpp:86-127) exploits the same band
-# structure sequentially; this is its MXU-tile form.
+# (block, band) matmuls skips the structurally-zero tiles.  Only the
+# *second* pass is banded; the first consumes the original operand
+# whole (on the H100 XLA writes its u8→f32 copy before the first dot
+# either way, PERF.md).  The reference's row-reuse NEON trick
+# (resize_neon.cpp:86-127) exploits the same band structure
+# sequentially.  The block size and the slice-start alignments below
+# are correct on any device; their best values on the GPU have not
+# been measured.
 _BAND_BLOCK = 128
 _BAND_THRESHOLD = 0.85
-# Band starts are rounded down for layout-aligned slices (lane dim 128,
-# f32 sublane dim 8); misaligned slice starts force vector relayouts.
+# Band starts are rounded down to these multiples (rows, columns).
 _ALIGN_ROWS = 8
 _ALIGN_COLS = 128
 
@@ -291,14 +294,16 @@ def _pass_plan(key, align):
     return _plan(_weight_matrices(*key[:6])[key[6]], align)
 
 
-def _matmul_rows(W: np.ndarray, x, blocks):
+def _matmul_rows(W: np.ndarray, x, blocks, precision):
     """``W @ x`` over axis -2, optionally block-banded."""
     if blocks is None:
-        return jnp.matmul(jnp.asarray(W), x, preferred_element_type=jnp.float32)
+        return jnp.matmul(jnp.asarray(W), x, precision=precision,
+                          preferred_element_type=jnp.float32)
     outs = [
         jnp.matmul(
             jnp.asarray(W[r0:r1, c0:c1]),
             x[..., c0:c1, :],
+            precision=precision,
             preferred_element_type=jnp.float32,
         )
         for (r0, r1, c0, c1) in blocks
@@ -306,14 +311,16 @@ def _matmul_rows(W: np.ndarray, x, blocks):
     return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-2)
 
 
-def _matmul_cols(W: np.ndarray, x, blocks):
+def _matmul_cols(W: np.ndarray, x, blocks, precision):
     """``x @ Wᵀ`` over axis -1, optionally block-banded."""
     if blocks is None:
-        return jnp.matmul(x, jnp.asarray(W.T), preferred_element_type=jnp.float32)
+        return jnp.matmul(x, jnp.asarray(W.T), precision=precision,
+                          preferred_element_type=jnp.float32)
     outs = [
         jnp.matmul(
             x[..., :, c0:c1],
             jnp.asarray(W[r0:r1, c0:c1].T),
+            precision=precision,
             preferred_element_type=jnp.float32,
         )
         for (r0, r1, c0, c1) in blocks
@@ -321,14 +328,25 @@ def _matmul_cols(W: np.ndarray, x, blocks):
     return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-1)
 
 
-def _apply_separable(planes, wy, wx, wkey=None):
+def _apply_separable(planes, wy, wx, wkey=None, quantized_u8=False):
     """``W_y @ planes @ W_xᵀ`` over the trailing (H, W) axes.
 
-    The first pass (consuming the original operand, so any upstream
-    convert/transpose stays fused into the dot) is always dense; the
-    second pass is block-banded when that cuts MACs.  Pass order is
+    The first pass (consuming the original operand) is always dense;
+    the second pass is block-banded when that cuts MACs.  Pass order is
     chosen to minimize modeled MACs under that rule.
-    ``planes``: (..., h_in, w_in) float32."""
+    ``planes``: (..., h_in, w_in) float32.
+
+    ``quantized_u8`` (u8 source, Q11 bilinear weights) returns the
+    reference's Q22 sum already truncated (``>> 22``), computed exactly:
+    every matmul operand has at most 11 significant bits and every
+    partial sum stays below 2^24 units, so the products are exact even
+    in TF32 and both passes run at ``Precision.DEFAULT``.  The first
+    pass yields ``t = T / 2048`` (integer ``T < 2^20``); the second runs
+    on ``hi = floor(t)`` and ``lo = T mod 2048`` separately and the two
+    halves recombine in int32.  Float data and the other weight
+    families run both passes at ``HIGHEST`` (true float32; TF32 keeps
+    only ~3 decimal digits).
+    """
     h_out, h_in = wy.shape
     w_out, w_in = wx.shape
     if wkey is not None:
@@ -337,25 +355,31 @@ def _apply_separable(planes, wy, wx, wkey=None):
     else:  # uncached weights (direct use): plan inline
         yblocks, ycost = _plan(wy, _ALIGN_ROWS)
         xblocks, xcost = _plan(wx, _ALIGN_COLS)
-    # First pass dense (fusion), second pass banded (MAC/tile savings).
+    precision = lax.Precision.DEFAULT if quantized_u8 else lax.Precision.HIGHEST
+    # First pass dense (fusion), second pass banded (MAC savings).
     cost_h_first = h_out * h_in * w_in + xcost * h_out
     cost_w_first = w_out * w_in * h_in + ycost * w_out
     if cost_h_first <= cost_w_first:
-        t = jnp.matmul(
-            jnp.asarray(wy), planes, preferred_element_type=jnp.float32
-        )
-        return _matmul_cols(wx, t, xblocks)
-    t = jnp.matmul(
-        planes, jnp.asarray(wx.T), preferred_element_type=jnp.float32
-    )
-    return _matmul_rows(wy, t, yblocks)
+        t = _matmul_rows(wy, planes, None, precision)
+        second = lambda v: _matmul_cols(wx, v, xblocks, precision)
+    else:
+        t = _matmul_cols(wx, planes, None, precision)
+        second = lambda v: _matmul_rows(wy, v, yblocks, precision)
+    if not quantized_u8:
+        return second(t)
+    hi = jnp.floor(t)
+    lo = (t - hi) * 2048.0
+    to_i32 = lambda v: jnp.round(v * 2048.0).astype(jnp.int32)
+    acc = to_i32(second(hi)) * 2048 + to_i32(second(lo))
+    return (acc >> 22).astype(jnp.float32)
 
 
 def resize_planes(planes, h_out: int, w_out: int, mode: InterMode, *, u8: bool):
     """Resize (..., h, w) float32 channel planes.  Returns float32.
 
-    ``u8`` selects the Q11-quantized bilinear weights so the result
-    matches the reference's fixed-point u8 kernel before truncation.
+    ``u8`` selects the Q11-quantized bilinear weights; the bilinear
+    result is then the reference fixed-point kernel's truncated value
+    (``>> 22``), exactly.
     """
     h_in, w_in = planes.shape[-2], planes.shape[-1]
     if (h_in, w_in) == (h_out, w_out):
@@ -364,7 +388,7 @@ def resize_planes(planes, h_out: int, w_out: int, mode: InterMode, *, u8: bool):
     quantize = bool(u8) and mode == InterMode.INTER_LINEAR
     wkey = (h_in, w_in, h_out, w_out, int(mode), quantize)
     wy, wx = _weight_matrices(*wkey)
-    return _apply_separable(planes, wy, wx, wkey)
+    return _apply_separable(planes, wy, wx, wkey, quantized_u8=quantize)
 
 
 def _resolve_dsize(h_in, w_in, dsize, fx, fy):
@@ -413,20 +437,17 @@ def resize(
     )
     if is_u8:
         if mode == InterMode.INTER_LINEAR:
-            # Fixed-point parity: the accumulated Q22 value is truncated
-            # (arithmetic >> 22 on non-negative data == floor).  A
-            # half-ULP epsilon absorbs f32 rounding of exactly-
-            # representable sums.
-            out = jnp.clip(jnp.floor(out + 1e-4), 0, 255).astype(jnp.uint8)
+            # Fixed-point parity: resize_planes already truncated the
+            # Q22 sum (>> 22) exactly.
+            out = jnp.clip(out, 0, 255).astype(jnp.uint8)
         else:
             # cubic/area/nearest have no vacv fixed-point kernel (the
             # reference forwards them to OpenCV, resize.cpp:46-49) —
             # round to nearest like cv::resize does.
             out = jnp.clip(jnp.floor(out + 0.5), 0, 255).astype(jnp.uint8)
     elif data.dtype != jnp.float32:
-        # half-precision inputs (f16/bf16): accumulate in f32 on the
-        # MXU, narrow on write-out (the fp16 graveyard resize's design,
-        # done the TPU way)
+        # half-precision inputs (f16/bf16): accumulate in f32, narrow
+        # on write-out (the fp16 graveyard resize's design)
         out = out.astype(data.dtype)
 
     if squeeze:

@@ -7,14 +7,12 @@ for every destination pixel compute the source coordinate
 outside ``[0, w-2] × [0, h-2]``, and bilinear-blend (u8: Q11
 fixed-point, ``>> 22`` truncation; f32: float weights).
 
-TPU-first design: the destination coordinate field of an affine map is
-*linear*, so ``fx``/``fy`` are built with two broadcasted iotas — no
-per-pixel scalar loop.  The four source taps are fetched with a single
-flattened XLA gather (indices clamped, invalid pixels masked to the
-border value).  This is the one true gather in the op set; per SURVEY
-§7's "hard parts" a tiled Pallas variant with per-tile bounding-box
-loads is the planned fast path for large outputs, while the XLA gather
-is the always-correct baseline.
+Design: the destination coordinate field of an affine map is *linear*,
+so ``fx``/``fy`` are built with two broadcasted iotas — no per-pixel
+scalar loop.  The four source taps are fetched with flattened XLA
+gathers (indices clamped, invalid pixels masked to the border value).
+Axis-aligned matrices (no rotation or shear) skip the gather and run
+as two banded matmuls (``_warp_separable``).
 
 Parity notes:
 * The reference destructively inverts the caller's M in place
@@ -33,6 +31,7 @@ import functools
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.image import Image, as_image
 from ..core.types import BorderMode, InterMode, Layout, VPoint, VScalar, VSize
@@ -105,64 +104,14 @@ def _reflect_index(t, n: int, *, include_edge: bool):
     return jnp.where(m >= n, 2 * n - 2 - m, m)
 
 
-# Largest source-margin (pixels per side) the kernel route will
-# materialize to serve a coordinate-remap border mode via padding.
-# Generous on purpose: a 256 px pad at 1080p costs a ~30 us copy while
-# the gather fallback it avoids runs ~16 ms (round-4 bench: a REPLICATE
-# warp overshooting 81 px fell past the old 64 px cap straight onto the
-# 11 ms gather).
-_PAD_CAP = 256
-
-# BorderMode -> jnp.pad mode reproducing cv::borderInterpolate's index
-# map: REPLICATE=clamp, REFLECT=edge-duplicating mirror ("symmetric"),
-# REFLECT_101=edge-sharing mirror ("reflect"), WRAP=periodic.
-_PAD_MODES = {
-    BorderMode.BORDER_REPLICATE: "edge",
-    BorderMode.BORDER_REFLECT: "symmetric",
-    BorderMode.BORDER_REFLECT_101: "reflect",
-    BorderMode.BORDER_WRAP: "wrap",
-}
-
-
-def _border_pad_plan(minv, h_in, w_in, h_out, w_out, cubic=False):
-    """Per-side source pads (top, bottom, left, right) that bring every
-    bilinear/nearest tap of the output grid in-bounds, or None.
-
-    An affine map takes its coordinate extremes at the output corners,
-    so the overshoot is static.  With the source pre-padded by the
-    border rule (and the matrix translated), the CONSTANT-border
-    Pallas kernel computes the remap modes exactly — the reference
-    served these through its OpenCV fallback (warp_affine.cpp:114-119).
-    """
-    m = np.asarray(minv, np.float64).reshape(2, 3)
-    xs = np.array([0.0, w_out - 1.0])
-    ys = np.array([0.0, h_out - 1.0])
-    cx = np.array([m[0, 0] * x + m[0, 1] * y + m[0, 2] for x in xs for y in ys])
-    cy = np.array([m[1, 0] * x + m[1, 1] * y + m[1, 2] for x in xs for y in ys])
-    # Tap range: floor(f) .. floor(f)+1, +1 margin for nearest
-    # rounding; cubic reaches one column/row further on each side.
-    # +1 guard pixel per side on top (round-5 ADVICE fix): the kernel
-    # evaluates fx/fy in f32 on a pad-translated matrix, so a corner
-    # sitting exactly on an integer boundary can floor one pixel past
-    # this f64 corner estimate — without the guard that tap's weight
-    # would be zeroed and border_value would bleed into a REPLICATE/
-    # REFLECT/WRAP pixel.  The pad copy is cheap; _PAD_CAP is generous.
-    ext = (1 if cubic else 0) + 1
-    sx_min = int(np.floor(cx.min())) - ext
-    sx_max = int(np.floor(cx.max())) + 1 + ext
-    sy_min = int(np.floor(cy.min())) - ext
-    sy_max = int(np.floor(cy.max())) + 1 + ext
-    pl_ = max(0, -sx_min)
-    pr = max(0, sx_max - (w_in - 1))
-    pt = max(0, -sy_min)
-    pb = max(0, sy_max - (h_in - 1))
-    if max(pl_, pr, pt, pb) > _PAD_CAP:
-        return None
-    # numpy pad-mode limits: "reflect" needs pad <= n-1, "symmetric"
-    # and "edge" need n >= 1; stay strictly inside for all modes.
-    if max(pt, pb) >= h_in or max(pl_, pr) >= w_in:
-        return None
-    return pt, pb, pl_, pr
+# The coordinate-remap border modes (cv::borderInterpolate index maps),
+# which the separable path folds into its tap indices.
+_REMAP_BORDERS = (
+    BorderMode.BORDER_REPLICATE,
+    BorderMode.BORDER_REFLECT,
+    BorderMode.BORDER_REFLECT_101,
+    BorderMode.BORDER_WRAP,
+)
 
 
 def _np_border_index(col: np.ndarray, n: int, border: "BorderMode") -> np.ndarray:
@@ -190,7 +139,7 @@ def _axis_weights(n_in: int, n_out: int, a: float, b: float, interp: str,
     ``f(d) = a*d + b`` (one axis of a separable affine), plus the
     per-output valid-weight row sums.
 
-    Tap positions and weights follow the warp kernels exactly (f32
+    Tap positions and weights follow the gather route exactly (f32
     coordinate math, floor/frac anchoring, Q11 quantization for the u8
     linear path, OpenCV half-up rounding for nearest, 4-tap A=-0.75 for
     cubic).  BORDER_CONSTANT zeroes out-of-image taps (the caller
@@ -241,9 +190,8 @@ def _axis_weights(n_in: int, n_out: int, a: float, b: float, interp: str,
     return W, rowsum.astype(np.float32)
 
 
-# Row-block size for the banded separable matmuls, and slice-start
-# alignments (lane dim 128, f32 sublane dim 8) — same tiling rationale
-# as resize's _BAND_BLOCK machinery.
+# Row-block size for the banded separable matmuls (same banding as
+# resize's _BAND_BLOCK machinery).
 _SEP_BLOCK = 128
 
 
@@ -268,10 +216,9 @@ def _sep_band_plan(W: np.ndarray, align: int):
 
 
 def _sep_matmul_rows(W, x, blocks):
-    """Banded ``W @ x`` over axis -2 (bf16x3 precision: the full-frame
-    warp operands are f32 image data, not u8-derived)."""
-    import jax
-
+    """Banded ``W @ x`` over axis -2.  ``HIGHEST`` precision: the
+    operands are arbitrary f32 image data and fractional weights, which
+    TF32 (``DEFAULT`` on a GPU) would round to 11 significant bits."""
     outs = []
     for (r0, r1, c0, c1) in blocks:
         if c0 == c1:
@@ -280,16 +227,14 @@ def _sep_matmul_rows(W, x, blocks):
         else:
             outs.append(jnp.matmul(
                 jnp.asarray(W[r0:r1, c0:c1]), x[..., c0:c1, :],
-                precision=jax.lax.Precision.HIGH,
+                precision=lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
             ))
     return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-2)
 
 
 def _sep_matmul_cols(W, x, blocks):
-    """Banded ``x @ Wᵀ`` over axis -1."""
-    import jax
-
+    """Banded ``x @ Wᵀ`` over axis -1 (``HIGHEST``, as above)."""
     outs = []
     for (r0, r1, c0, c1) in blocks:
         if c0 == c1:
@@ -297,7 +242,7 @@ def _sep_matmul_cols(W, x, blocks):
         else:
             outs.append(jnp.matmul(
                 x[..., :, c0:c1], jnp.asarray(W[r0:r1, c0:c1].T),
-                precision=jax.lax.Precision.HIGH,
+                precision=lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
             ))
     return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=-1)
@@ -306,24 +251,20 @@ def _sep_matmul_cols(W, x, blocks):
 def _warp_separable(planes, minv, h_out: int, w_out: int, *, u8: bool,
                     border_value: float, edge_mode: str,
                     border: "BorderMode", interp: str):
-    """Axis-aligned (m1 == m3 == 0) affine warp as two banded MXU
-    matmuls — the resize machinery generalized to affine offsets.
+    """Axis-aligned (m1 == m3 == 0) affine warp as two banded matmuls
+    — the resize machinery generalized to affine offsets.
 
     A rotation-free affine map is exactly separable:
     ``dst = W_y @ src @ W_xᵀ`` with per-axis warp weight rows built
-    from ``fx = m0·dx + m2`` / ``fy = m4·dy + m5``.  This runs at the
-    resize kernels' memory-bound speed (~0.03–0.4 ms full-frame) where
-    the general selection kernel pays MXU MACs for the rotation it
-    doesn't have (~2–4 ms f32 full-frame).  BORDER_CONSTANT's missing
+    from ``fx = m0·dx + m2`` / ``fy = m4·dy + m5``, with no gather.
+    BORDER_CONSTANT's missing
     tap weight is restored as a rank-1 backfill
     ``bv · (1 − rowsum_y ⊗ rowsum_x)``; remap borders fold into the
-    tap indices (exact for arbitrary overshoot — no pad cap).
+    tap indices (exact for arbitrary overshoot).
 
     Both matmul passes are block-banded: a full-frame near-unit-scale
     warp has n_out ≈ n_in on both axes, where one dense pass would
-    burn ~17 G MACs at 1440p (≈1.5 ms) against the band's ~1.8 G.
-    bf16x3 precision keeps f32 inputs ~f32-faithful (the tight abs
-    test bar is 0.05 on 0..255 data; single-pass bf16 would miss it).
+    cost ~17 G MACs at 1440p against the band's ~1.8 G.
 
     Returns f32 planes (pre-truncation, like ``_warp_planes``).
     """
@@ -482,9 +423,8 @@ def _warp_planes(planes, minv: np.ndarray, h_out: int, w_out: int, *, u8: bool,
         + p11 * (wx1 * wy1)
     )
     if edge_mode == "vacv":
-        # Same predicate (and the same f32 coordinate grid — one
-        # definition keeps the kernel route's post-mask FMA-for-FMA
-        # identical to this one) as the pallas route uses.
+        # Same predicate and f32 coordinate grid as the separable
+        # route's post-mask.
         full_support = _vacv_support_mask(minv, h_out, w_out, h_in, w_in)
         out = jnp.where(full_support, out, bv)
     return out
@@ -545,31 +485,18 @@ def warp_affine(
     else:
         planes = data
 
-    # Fast path 1: axis-aligned matrices (m1 == m3 == 0 — pure
-    # scale/translate/flip, the SLAM-and-serving-common resize-with-
-    # offset case) run as two banded MXU matmuls via the resize
-    # machinery (see _warp_separable) — ~10–100x the selection kernel,
-    # any dtype, vmap-safe.
-    #
-    # Fast path 2: the gather-free pallas kernel (TPU; bilinear,
-    # nearest or 4x4 A=-0.75 cubic, u8 or f32).  CONSTANT borders run
-    # the kernel directly; the coordinate-remap modes (REPLICATE/
-    # REFLECT/REFLECT_101/WRAP) run it on a border-rule-padded source
-    # with a translated matrix (static overshoot from the affine corner
-    # extremes); the vacv skip-edge semantics are an output-grid
-    # post-mask (linear only, matching the reference).  The XLA gather
-    # remains the fallback for unplannable geometries.
-    use_kernel = False
-    pad_plan = None
-    _KINTERP = {InterMode.INTER_LINEAR: "linear",
-                InterMode.INTER_NEAREST: "nearest",
-                InterMode.INTER_CUBIC: "cubic"}
+    # Axis-aligned matrices (m1 == m3 == 0 — pure scale/translate/
+    # flip, the resize-with-offset case) run as two banded matmuls (see
+    # _warp_separable): no gather, any dtype, vmap-safe.  Everything
+    # else takes the gather route below.
+    _INTERP = {InterMode.INTER_LINEAR: "linear",
+               InterMode.INTER_NEAREST: "nearest",
+               InterMode.INTER_CUBIC: "cubic"}
     if (
-        interp in _KINTERP
-        and float(minv[0, 1]) == 0.0
+        float(minv[0, 1]) == 0.0
         and float(minv[1, 0]) == 0.0
         and (border_mode == BorderMode.BORDER_CONSTANT
-             or border_mode in _PAD_MODES)
+             or border_mode in _REMAP_BORDERS)
     ):
         from .. import config as vconfig
 
@@ -577,111 +504,38 @@ def warp_affine(
         out = _warp_separable(
             planes.astype(jnp.float32), minv, dsize.h, dsize.w,
             u8=is_u8, border_value=bv, edge_mode=edge_mode,
-            border=border_mode, interp=_KINTERP[interp],
+            border=border_mode, interp=_INTERP[interp],
         )
-        if is_u8:
-            if interp == InterMode.INTER_LINEAR:
-                out = jnp.clip(jnp.floor(out + 1e-4), 0, 255).astype(
-                    jnp.uint8)
-            else:
-                out = jnp.clip(jnp.floor(out + 0.5), 0, 255).astype(
-                    jnp.uint8)
-        elif data.dtype != jnp.float32:
-            out = out.astype(data.dtype)
-        if squeeze:
-            out = out[0]
-        elif img.layout == Layout.HWC:
-            out = jnp.transpose(out, (1, 2, 0))
-        return img.with_data(out)
-    if (
-        interp in _KINTERP
-        and data.dtype in (jnp.uint8, jnp.float32)
-        and (border_mode == BorderMode.BORDER_CONSTANT
-             or border_mode in _PAD_MODES)
-    ):
-        from .. import config as vconfig
-        from .pallas.warp_affine import (
-            under_vmap, warp_affine_pallas, warp_supported,
-        )
-
-        h_k, w_k = planes.shape[-2], planes.shape[-1]
-        if border_mode in _PAD_MODES:
-            pad_plan = _border_pad_plan(
-                minv, h_k, w_k, dsize.h, dsize.w,
-                cubic=interp == InterMode.INTER_CUBIC)
-            if pad_plan is not None:
-                pt, pb, pl_, pr = pad_plan
-                h_k, w_k = h_k + pt + pb, w_k + pl_ + pr
-        if (
-            vconfig.use_pallas()
-            and (border_mode == BorderMode.BORDER_CONSTANT
-                 or pad_plan is not None)
-            and warp_supported(
-                minv, h_k, w_k, data.dtype.itemsize,
-                w_out=dsize.w, h_out=dsize.h, c=planes.shape[0],
-                allow_stream=not under_vmap(planes),
-                interp=_KINTERP[interp],
-            )
-        ):
-            use_kernel = True
-
-    if use_kernel:
-        kplanes, kminv = planes, minv
-        if pad_plan is not None:
-            pt, pb, pl_, pr = pad_plan
-            kplanes = jnp.pad(
-                planes, ((0, 0), (pt, pb), (pl_, pr)),
-                mode=_PAD_MODES[border_mode],
-            )
-            kminv = np.asarray(minv, np.float64).copy()
-            kminv[0, 2] += pl_
-            kminv[1, 2] += pt
-            kminv = kminv.astype(np.float32)
-        out = warp_affine_pallas(
-            kplanes, kminv, dsize.h, dsize.w, u8=is_u8, border_value=bv,
-            interp=_KINTERP[interp],
-        )
-        # The vacv skip-edge semantics are defined by the reference's
-        # native LINEAR kernel (warp_affine_naive.cpp:26-38); its
-        # nearest path came from the OpenCV fallback, which only
-        # rejects out-of-image coords — matching the jnp route, which
-        # never masks nearest.
-        if edge_mode == "vacv" and interp == InterMode.INTER_LINEAR:
-            mask = _vacv_support_mask(
-                minv, dsize.h, dsize.w,
-                planes.shape[-2], planes.shape[-1])
-            if is_u8:
-                fill = np.uint8(np.clip(np.floor(bv + 1e-4), 0, 255))
-            else:
-                fill = jnp.float32(bv)
-            out = jnp.where(mask[None], out, fill)
-        if squeeze:
-            out = out[0]
-        elif img.layout == Layout.HWC:
-            out = jnp.transpose(out, (1, 2, 0))
-        return img.with_data(out)
+        return img.with_data(_finish(out, data.dtype, interp, squeeze,
+                                     img.layout))
 
     out = _warp_planes(
         planes.astype(jnp.float32), minv, dsize.h, dsize.w, u8=is_u8,
         border_value=bv, edge_mode=edge_mode, border=border_mode,
         interp=interp,
     )
-    if is_u8:
+    return img.with_data(_finish(out, data.dtype, interp, squeeze,
+                                 img.layout))
+
+
+def _finish(out, dtype, interp, squeeze: bool, layout):
+    """f32 warped planes -> the caller's dtype and layout."""
+    if dtype == jnp.uint8:
         if interp == InterMode.INTER_LINEAR:
-            # Q22 truncation parity (warp_affine_naive.cpp:50-54).
+            # Q22 truncation parity (warp_affine_naive.cpp:50-54); the
+            # epsilon absorbs f32 rounding of exactly-integral sums.
             out = jnp.clip(jnp.floor(out + 1e-4), 0, 255).astype(jnp.uint8)
         else:
             # Nearest/cubic have no vacv-native u8 path; match OpenCV's
             # saturate_cast round-to-nearest instead.
             out = jnp.clip(jnp.floor(out + 0.5), 0, 255).astype(jnp.uint8)
-    elif data.dtype != jnp.float32:
-        out = out.astype(data.dtype)  # f16/bf16 passthrough
-
+    elif dtype != jnp.float32:
+        out = out.astype(dtype)  # f16/bf16 passthrough
     if squeeze:
-        out = out[0]
-    elif img.layout == Layout.HWC:
-        out = jnp.transpose(out, (1, 2, 0))
-    return img.with_data(out)
+        return out[0]
+    if layout == Layout.HWC:
+        return jnp.transpose(out, (1, 2, 0))
+    return out
 
 
 def warp_affine_rot(

@@ -1,10 +1,11 @@
 """Device-mesh construction and multi-host bootstrap.
 
 The reference is single-process/single-device; its only scale-out axis
-is SIMD width + OpenMP threads (SURVEY §2.5).  The TPU rebuild's
+is SIMD width + OpenMP threads (SURVEY §2.5).  This rebuild's
 scale-out axis is **batch data parallelism over frames**: a 1-D
-``jax.sharding.Mesh`` whose single ``"data"`` axis spans all chips
-(ICI within a host/slice, DCN across hosts).  Per-image preprocessing
+``jax.sharding.Mesh`` whose single ``"data"`` axis spans all devices
+(the cards of a host all reach each other over NVLink, so the mesh
+follows the algorithm, not a topology).  Per-image preprocessing
 is embarrassingly parallel — no collectives on the hot path — so
 scaling efficiency is bounded only by input feeding; cross-batch
 statistics (when requested) ride a single ``psum``.
@@ -21,7 +22,7 @@ DATA_AXIS = "data"
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
                      process_id: int | None = None) -> None:
     """Multi-host bootstrap (``jax.distributed.initialize``) — the
-    TPU-native replacement for the reference's nonexistent comm backend
+    replacement for the reference's nonexistent comm backend
     (SURVEY §5.8).  No-op when running single-process."""
     if num_processes is None or num_processes <= 1:
         return

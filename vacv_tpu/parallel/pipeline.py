@@ -52,7 +52,7 @@ def shard_batched_with_stats(fn, mesh: Mesh, axis: str = DATA_AXIS):
 
 def put_sharded(batch, mesh: Mesh, axis: str = DATA_AXIS):
     """Host→device transfer of a numpy batch, sharded on arrival (the
-    TPU analogue of the reference's pinned/zero-copy H2D study in
+    JAX analogue of the reference's pinned/zero-copy H2D study in
     ``cuda.md`` — ``device_put`` with a sharding places each shard
     directly on its device)."""
     from jax.sharding import NamedSharding

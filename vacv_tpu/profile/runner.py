@@ -13,6 +13,7 @@ and ``save_results`` — a stub in the reference (cv_profile.cpp:119-121)
 from __future__ import annotations
 
 import json
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -104,14 +105,21 @@ class CvProfile:
             f"{'test':<{name_w}} {'ref_ms':>10} {'ours_ms':>10} "
             f"{'speedup':>8} {'cosine':>10}  result"
         )
+        nm = "not measured"
         for r in self.results:
-            ok = r.passed
-            all_pass &= ok
-            tag = f"{_GREEN}PASS{_RESET}" if ok else f"{_RED}FAIL{_RESET}"
-            print(
-                f"{r.name:<{name_w}} {r.ref_ms:>10.3f} {r.ours_ms:>10.3f} "
-                f"{r.speedup:>7.1f}x {r.cosine:>10.6f}  {tag}"
-            )
+            if math.isnan(r.cosine):  # no reference available to compare
+                tag, cos = nm, f"{nm:>10}"
+            else:
+                ok = r.passed
+                all_pass &= ok
+                tag = f"{_GREEN}PASS{_RESET}" if ok else f"{_RED}FAIL{_RESET}"
+                cos = f"{r.cosine:>10.6f}"
+            if math.isnan(r.ref_ms):  # OpenCV not installed
+                ref, speed = f"{nm:>10}", f"{'':>8}"
+            else:
+                ref, speed = f"{r.ref_ms:>10.3f}", f"{r.speedup:>7.1f}x"
+            print(f"{r.name:<{name_w}} {ref} {r.ours_ms:>10.3f} {speed} "
+                  f"{cos}  {tag}")
         return all_pass
 
     def save_results(self, path: str) -> None:

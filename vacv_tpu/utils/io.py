@@ -5,7 +5,7 @@ synthesizes NV21 input from BGR via integer coefficients
 (``ImageUtil::bgr2nv21``, reference
 ``/root/reference/src/util/image_util.cpp:3-41``).  This module is the
 host-side feeder: decode happens on CPU, pixels then move to device via
-``jax.device_put`` (the TPU analogue of the reference's H2D memcpy
+``jax.device_put`` (the JAX analogue of the reference's H2D memcpy
 study in ``cuda.md``).
 
 ``bgr2nv21`` prefers the native C++ extension

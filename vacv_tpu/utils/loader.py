@@ -1,11 +1,11 @@
 """Multi-threaded batch data loader — host-side input feeding.
 
 The reference's "loader" is a synchronous ``cv::imread`` per test
-(test_crop.cpp:46); a production TPU pipeline needs the host to keep
-N chips fed, so this loader decodes JPEGs on a thread pool (native
+(test_crop.cpp:46); a production pipeline needs the host to keep
+N devices fed, so this loader decodes JPEGs on a thread pool (native
 libjpeg via ``vacv_tpu.native`` when built, else cv2/PIL), assembles
 fixed-shape batches, and hands them to ``device_put`` — optionally
-sharded straight onto a mesh (``parallel.put_sharded``), the TPU
+sharded straight onto a mesh (``parallel.put_sharded``), the JAX
 analogue of the reference's pinned/zero-copy H2D strategies
 (``cuda.md``).
 """
